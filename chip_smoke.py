@@ -5,18 +5,28 @@
 
 Phases (any failure exits non-zero, and no result line is printed):
   1. the card: `nvidia-smi` name and power limit, torch and CUDA versions;
-  2. build every hand kernel from `multivolumes_tpu_torch/csrc/` (nvcc,
-     sm_90a) and load it;
+  2. build every hand kernel from `multivolumes_tpu_torch/csrc/` (one nvcc
+     per source, all at once, sm_90a) and load them;
   3. each kernel against its plain PyTorch version on the card, on the
      operands the main path gives it (captured from the demo-scale scene
-     and one of its frames), with the parity tolerance of the kernel's
-     CPU test; times of both from CUDA events after warm-up;
-  4. the main path at the 64-volume 1280x800 demo scale (no mesh, no TAA):
-     8 frames along the orbit, through `MultiRayCaster.render`; the image
-     must be finite with real volume coverage, and every kernel's launch
-     count must have risen during those frames;
-  5. one small frame rendered with impl="kernel" and with impl="plain"
-     from the same state, compared with the golden-image tolerance.
+     and its frames; the TAA resolve from the third frame, so the history
+     is not zero, with and without the fused tone map, and on a seeded
+     synthetic 1280x800 case with half the alpha at 1), with the parity
+     tolerance of the kernel's CPU test; times of both from CUDA events
+     after warm-up;
+  4. the main path at the 64-volume 1280x800 demo scale (no mesh, TAA on):
+     8 frames along the orbit through `MultiRayCaster.render`, then the
+     same 8 cameras through `MultiRayCaster.render_block` from a copy of
+     the starting state. Each path runs with the launch counts set to 0
+     just before it and read just after, and every kernel must have
+     launched in each; the block's images must equal the sequential ones
+     (atol 2e-5), and the image must be finite with real volume coverage;
+  5. three small frames with TAA rendered with impl="kernel" and with
+     impl="plain" from the same state, compared with the golden-image
+     tolerance;
+  6. the app, `python -m multivolumes_tpu_torch.app` at the demo scale
+     for 4 animated frames, in its own process: exit code 0 and a
+     non-empty PNG.
 
 The last line is `{"ok": true, "device": {...}}`; the line before it is
 the per-kernel JSON summary, and the one before that the `nvidia-smi`
@@ -45,6 +55,7 @@ KERNELS = {
                         _PALLAS + "lightsweep_kernel.py:96"),
     "light_advect_mul": (_CSRC + "lightsweep.cu",
                          _PALLAS + "lightsweep_kernel.py:152"),
+    "taa": (_CSRC + "taa.cu", _PALLAS + "taa_kernel.py:226"),
 }
 
 DEMO = dict(width=1280, height=800, grid_size=128, light_grid_size=96,
@@ -226,6 +237,7 @@ def main() -> int:
     for r in results:
         r["launches"] = launches[r["name"].split("@")[0]]
     phase_small(RenderConfig(**SMALL), dev)
+    phase_app()
 
     log(smi_line)
     print(json.dumps({"kernels": results}), flush=True)
@@ -243,6 +255,7 @@ def phase_kernels(cfg, dev):
     from multivolumes_tpu_torch.core import camera as cam_lib
     from multivolumes_tpu_torch.engine import MultiRayCaster
     from multivolumes_tpu_torch.ops import lightsweep as light_ops
+    from multivolumes_tpu_torch.ops import taa as taa_ops
     from multivolumes_tpu_torch.render import frame as frame_lib
     from multivolumes_tpu_torch.render import sweep as sweep_mod
     from multivolumes_tpu_torch.render import tilecast as tile_mod
@@ -255,11 +268,15 @@ def phase_kernels(cfg, dev):
     torch.cuda.synchronize()
     log(f"[scene] {cfg.num_volumes}-volume scene built in "
         f"{time.time() - t0:.1f} s")
-    cam0 = cam_lib.orbit_camera(0.0, cfg.aspect_ratio, device=dev)
+    cams = [cam_lib.orbit_camera(0.25 * i, cfg.aspect_ratio, device=dev)
+            for i in range(3)]
     probe = clone_state(engine.state)
     with capture(targets + [(sweep_mod, "sweep_march"),
                             (tile_mod, "tile_composite")]) as frame_calls:
-        frame_lib.render_frame(probe, cam0, engine.config)
+        probe = frame_lib.render_frame(probe, cams[0], engine.config).state
+    probe = frame_lib.render_frame(probe, cams[1], engine.config).state
+    with capture([(taa_ops, "taa_resolve")]) as taa_calls:
+        frame_lib.render_frame(probe, cams[2], engine.config)
     del probe
     torch.cuda.synchronize()
 
@@ -301,42 +318,117 @@ def phase_kernels(cfg, dev):
         results.append(compare_kernel(f"light_advect_mul@{cname}",
                                       light_ops.light_advect_mul, a, k,
                                       light_tol, reps=(10, 2)))
-    del frame_calls, init_calls
+    taa_tol = allclose_tol(2e-5, 0.0, "taa")
+    (a, _k) = taa_calls["taa_resolve"]
+    check(float(a[1][3].min()) > 0.0, "frame 3's TAA history is still zero")
+    for name, kw in (("taa@frame3", {}), ("taa@frame3+tonemap",
+                                           dict(tonemap=True))):
+        results.append(compare_kernel(name, taa_ops.taa_resolve, a, kw,
+                                      taa_tol, reps=(20, 3)))
+    results.append(compare_kernel(
+        "taa@synthetic", taa_ops.taa_resolve,
+        taa_synthetic(dev, cfg.height, cfg.width), dict(tonemap=True),
+        taa_tol, reps=(20, 3)))
+    del frame_calls, init_calls, taa_calls
     return engine, results
 
 
-def phase_demo(engine, cfg, dev, frames: int = 8):
-    """Drive the main path through the engine; return the launch counts
-    of exactly those frames."""
+def taa_synthetic(dev, h, w, seed=0):
+    """Seeded B5 operands that reach the history blend: half the alpha at
+    1, a random history with some full counts, a non-zero blur on half
+    the pixels."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    cur = rng.rand(4, h, w).astype(np.float32) * 2.0
+    cur[3] = np.where(rng.rand(h, w) < 0.5, 1.0, 0.5)
+    hist = rng.rand(4, h, w).astype(np.float32)
+    hist[3] = np.where(rng.rand(h, w) < 0.3, 1.0, hist[3])
+    blur = np.where(rng.rand(h, w) < 0.5, 0.0, rng.rand(h, w) * 1.5)
+    return tuple(torch.tensor(x, dtype=torch.float32, device=dev)
+                 for x in (cur, hist, blur))
+
+
+def drive(what, fn, frames):
+    """Run fn() (which renders `frames` frames and returns the images) with
+    the launch counts set to 0 just before and read just after; every
+    kernel must have launched."""
     import torch
 
     from multivolumes_tpu_torch import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / frames
+    launches = dict(ops.LAUNCHES)
+    log(f"[demo] {what}: {ms:.3f} ms/frame, mean of {frames} frames (host "
+        f"clock); launches {launches}")
+    for name in KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched by the {what} frames")
+    return out, launches
+
+
+def phase_demo(engine, cfg, dev, frames: int = 8):
+    """Drive the main path through the engine, frame by frame and as one
+    block from the same starting state; return the launch counts of the
+    frame-by-frame run."""
+    import torch
+
     from multivolumes_tpu_torch.core import camera as cam_lib
     from multivolumes_tpu_torch.render import frame as frame_lib
 
     cams = [cam_lib.orbit_camera(0.25 * i, cfg.aspect_ratio, device=dev)
             for i in range(frames)]
+    start = clone_state(engine.state)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
     times = []
-    for cam in cams:
-        t0 = time.perf_counter()
-        img = engine.render(cam)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    launches = dict(ops.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    log(f"[demo] ms/frame (host clock, sync per frame): "
+
+    def render_each():
+        imgs = []
+        for cam in cams:
+            t0 = time.perf_counter()
+            imgs.append(engine.render(cam))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return imgs
+
+    seq, launches = drive("render", render_each, frames)
+    # the copy of the starting state kept for render_block is not the
+    # path's own memory
+    copy_bytes = sum(getattr(start, f.name).nbytes
+                     for f in dataclasses.fields(start)
+                     if isinstance(getattr(start, f.name), torch.Tensor))
+    peak = torch.cuda.max_memory_allocated() - copy_bytes
+    log(f"[demo] render ms/frame (host clock, sync per frame): "
         + " ".join(f"{t:.2f}" for t in times))
     steady = sorted(times[1:])
-    log(f"[demo] median {steady[len(steady) // 2]:.3f} ms/frame over frames "
-        f"2-{frames}; peak memory {peak / 2**30:.3f} GiB; launches {launches}")
+    log(f"[demo] render median {steady[len(steady) // 2]:.3f} ms/frame over "
+        f"frames 2-{frames}; peak memory {peak / 2**30:.3f} GiB (without "
+        f"the {copy_bytes / 2**30:.3f} GiB copy of the starting state)")
+    img = seq[-1]
     check(tuple(img.shape) == (cfg.height, cfg.width, 3),
           f"image shape {tuple(img.shape)}")
     check(bool(torch.isfinite(img).all()), "non-finite demo image")
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched by the demo frames")
+    end_state = engine.state
+
+    engine.state = clone_state(start)
+    del start
+    block, _ = drive("render_block", lambda: engine.render_block(cams),
+                     frames)
+    check(tuple(block.shape) == (frames, 3, cfg.height, cfg.width),
+          f"block shape {tuple(block.shape)}")
+    check(engine.state.frame_idx == end_state.frame_idx,
+          "render_block advanced the state by another frame count")
+    for f in range(frames):
+        allclose_tol(2e-5, 0.0, f"render_block frame {f} vs render")(
+            block[f].permute(1, 2, 0), seq[f])
+    del block, seq
 
     # per-pass device times of one more frame (CUDA events)
     events = []
@@ -360,9 +452,10 @@ def phase_demo(engine, cfg, dev, frames: int = 8):
     return launches
 
 
-def phase_small(small, dev):
-    """One frame with impl="kernel" and one with impl="plain" from the
-    same state, held to the golden-image tolerance."""
+def phase_small(small, dev, frames: int = 3):
+    """Three frames with TAA rendered with impl="kernel" and with
+    impl="plain" from the same state, each held to the golden-image
+    tolerance."""
     import torch
 
     from multivolumes_tpu_torch.core import camera as cam_lib
@@ -370,14 +463,39 @@ def phase_small(small, dev):
     from multivolumes_tpu_torch.render import frame as frame_lib
 
     eng_s = MultiRayCaster(small, device=dev)
-    cam = cam_lib.orbit_camera(0.7, small.aspect_ratio, device=dev)
     st_k, st_p = clone_state(eng_s.state), clone_state(eng_s.state)
-    img_k = frame_lib.render_frame(st_k, cam, eng_s.config,
-                                   impl="kernel").image
-    img_p = frame_lib.render_frame(st_p, cam, eng_s.config,
-                                   impl="plain").image
-    image_tol(2e-3, 99.9, 3e-2, "small frame kernel vs plain")(img_k, img_p)
-    check(bool(torch.isfinite(img_k).all()), "non-finite small frame")
+    for f in range(frames):
+        cam = cam_lib.orbit_camera(0.7 + f / 60.0, small.aspect_ratio,
+                                   device=dev)
+        out_k = frame_lib.render_frame(st_k, cam, eng_s.config,
+                                       impl="kernel")
+        out_p = frame_lib.render_frame(st_p, cam, eng_s.config, impl="plain")
+        st_k, st_p = out_k.state, out_p.state
+        image_tol(2e-3, 99.9, 3e-2, f"small frame {f} kernel vs plain")(
+            out_k.image, out_p.image)
+        check(bool(torch.isfinite(out_k.image).all()),
+              "non-finite small frame")
+
+
+def phase_app(frames: int = 4):
+    """The app at the demo scale in its own process."""
+    out = os.path.join(HERE, "build", "chip_smoke_app.png")
+    if os.path.exists(out):
+        os.remove(out)
+    cmd = [sys.executable, "-m", "multivolumes_tpu_torch.app",
+           "--numVolumes", "64", "--frames", str(frames), "--animate",
+           "--out", out]
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                          timeout=600)
+    tail = proc.stdout.strip().splitlines()[-(frames + 1):]
+    for line in tail:
+        log(f"[app] {line}")
+    check(proc.returncode == 0,
+          f"app exited {proc.returncode}: {proc.stderr[-2000:]}")
+    size = os.path.getsize(out) if os.path.exists(out) else 0
+    check(size > 0, f"app wrote no PNG at {out}")
+    log(f"[app] rc 0, {size} byte PNG in {time.time() - t0:.1f} s")
 
 
 if __name__ == "__main__":

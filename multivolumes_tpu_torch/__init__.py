@@ -9,8 +9,10 @@ first use, `ops/build.py`) with a plain PyTorch version beside it
 (`ops/*.py`). The configuration is shared with the JAX package, whose
 `config` module imports no JAX. This package never imports `jax`.
 
-Ported so far: the main frame without a mesh and without TAA
-(`render/frame.py:render_frame(..., use_taa=False)`).
+Ported so far: the whole system without a mesh, TAA included: the frame
+(`render/frame.py:render_frame`, `render_frames`), the engine with its
+setters (`engine.py`) and the offline app (`python -m
+multivolumes_tpu_torch.app`).
 """
 
 from multivolumes_tpu.config import RenderConfig, SharedConsts

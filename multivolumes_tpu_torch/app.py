@@ -1,0 +1,261 @@
+"""Offline app harness: the `MultiVolumes` shell without a window.
+
+Counterpart of `multivolumes_tpu/app.py`: the reference's CLI
+(`MultiVolumes::ParseCommandLineArgs`, `MultiVolumes.cpp:543-613`) and
+per-frame loop (`OnUpdate`/`OnRender`). It renders F frames of the demo
+scene with TAA (optionally along the orbit-camera animation of
+`MultiVolumes.cpp:328-337`) and writes a PNG screenshot, the F11 path
+(`MultiVolumes.cpp:744-764`). It renders on the CUDA device; `--warp`
+(the reference's software-adapter flag) renders on the CPU instead, and
+without `--warp` and without a CUDA device it exits non-zero. Run:
+
+    python -m multivolumes_tpu_torch.app --numVolumes 64 --frames 8 \\
+        --animate --out out.png
+    python -m multivolumes_tpu_torch.app --warp --width 96 --height 64 \\
+        --gridSize 16 --lightGridSize 8 --numVolumes 4 --frames 2 --animate
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import torch
+
+from multivolumes_tpu.config import RenderConfig
+from multivolumes_tpu.utils.png import write_png
+from multivolumes_tpu.utils.steptimer import StepTimer
+from multivolumes_tpu_torch.core import camera as cam_lib
+from multivolumes_tpu_torch.engine import MultiRayCaster
+from multivolumes_tpu_torch.render.postprocess import srgb_encode
+
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"not ported to multivolumes_tpu_torch yet: {what} (see ROADMAP.md)")
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__)
+    # reference flags (`MultiVolumes.cpp:543-613`)
+    p.add_argument("--gridSize", type=int, default=128)
+    p.add_argument("--lightGridSize", type=int, default=96)
+    p.add_argument("--maxRaySamples", type=int, default=256)
+    p.add_argument("--maxLightSamples", type=int, default=96)
+    p.add_argument("--numVolumes", type=int, default=2)
+    p.add_argument("--volume", nargs="+", default=None, action="append",
+                   metavar="[FILE] X Y Z SCALE",
+                   help="reference -volume parity "
+                        "(`MultiVolumes.cpp:559-568`): an optional R32F "
+                        "volume DDS, then the scene placement x y z scale "
+                        "(any trailing subset). Repeatable: occurrence "
+                        "k's file loads into volume source k; later "
+                        "placement floats win")
+    p.add_argument("--volumeFile", type=str, default=None,
+                   help="R32F volume DDS loaded into source 0 (alias for "
+                        "the file part of --volume)")
+    p.add_argument("--radiance", type=str, default=None,
+                   help="radiance cube-map DDS (LightProbe::Init)")
+    p.add_argument("--uma", action="store_true",
+                   help="accepted for reference CLI parity; adapter "
+                        "selection does not apply")
+    p.add_argument("--mesh", type=str, default=None,
+                   help="OBJ path (the mesh pass is not ported yet)")
+    p.add_argument("--meshPos", nargs=4, type=float,
+                   default=[0.0, -9.0, 0.0, 1.8],
+                   metavar=("X", "Y", "Z", "SCALE"))
+    p.add_argument("--width", type=int, default=1280)
+    p.add_argument("--height", type=int, default=800)
+    # harness extras
+    p.add_argument("--frames", type=int, default=4)
+    p.add_argument("--animate", action="store_true",
+                   help="orbit camera ([A] hotkey)")
+    p.add_argument("--fixedTimestep", type=float, default=None, metavar="FPS",
+                   help="fixed-timestep clock at the given rate "
+                        "(StepTimer::SetFixedTimeStep); default variable")
+    p.add_argument("--no-taa", action="store_true")
+    p.add_argument("--march", choices=["sweep", "reference"], default="sweep",
+                   help="view-march algorithm ('reference' is not ported "
+                        "yet)")
+    p.add_argument("--warp", action="store_true",
+                   help="render on the CPU (the reference's -warp "
+                        "software-adapter flag, MultiVolumes.cpp:110-128)")
+    p.add_argument("--bf16", dest="bf16", action="store_true", default=None,
+                   help="bfloat16 sweep stacks (the default; the reference "
+                        "computes in min16float)")
+    p.add_argument("--f32", dest="bf16", action="store_false",
+                   help="full-precision sweep stacks")
+    p.add_argument("--stats", action="store_true",
+                   help="per-frame cull/LOD stats (not ported yet)")
+    p.add_argument("--interactive", action="store_true",
+                   help="read hotkey commands from stdin between frames, "
+                        "the headless analog of the reference's runtime "
+                        "hotkeys (`MultiVolumes::OnKeyUp`, "
+                        "MultiVolumes.cpp:447-479): one letter per line: "
+                        "[p]ause (Space), [a]nimate, [t] TAA, [f] FPS "
+                        "line (F1), [s] screenshot now (F11), [q]uit. "
+                        "[m]esh, [o] composite cycle and [w] march mode "
+                        "select passes not ported yet")
+    p.add_argument("--out", type=str, default="frame.png")
+    return p
+
+
+def apply_command(cmd: str, engine, ui: dict) -> bool:
+    """One hotkey command against the live engine (returns False on
+    quit)."""
+    if cmd == "q":
+        return False
+    if cmd in ("m", "o", "w"):
+        raise _unported({"m": "the mesh pass ([m] hotkey)",
+                         "o": "the warp and gather composites ([o] hotkey)",
+                         "w": "the reference march ([w] hotkey)"}[cmd])
+    if cmd in ("p", "a", "t", "f"):
+        key = {"p": "paused", "a": "animate", "t": "taa", "f": "fps"}[cmd]
+        ui[key] = not ui[key]
+        print(f"{key}={ui[key]}")
+    elif cmd == "s":
+        ui["screenshot"] = True
+    elif cmd:
+        print(f"unknown command {cmd!r} (p a t f s q)")
+    return True
+
+
+def _poll_commands(timeout: float = 0.0):
+    """Non-blocking read of pending stdin lines (one command each).
+    Returns (commands, eof): EOF means stop polling; the remaining frames
+    still render (piped scripts end with 'q' to quit early)."""
+    import select
+
+    cmds = []
+    while True:
+        ready, _, _ = select.select([sys.stdin], [], [], timeout)
+        if not ready:
+            return cmds, False
+        line = sys.stdin.readline()
+        if not line:
+            return cmds, True
+        cmds.append(line.strip().lower())
+        timeout = 0.0
+
+
+def parse_volume_arg(tokens, default_file=None, vol_pos_scale=None):
+    """-volume [FILE] x y z s (`MultiVolumes.cpp:559-568`): a leading
+    non-numeric token is the volume file; the numbers update vol_pos_scale
+    in order, keeping the defaults for the rest.
+    Returns (volume_file, [x, y, z, scale])."""
+    volume_file = default_file
+    if vol_pos_scale is None:
+        vol_pos_scale = [0.0, 0.0, 0.0, 10.0]
+    if tokens:
+        tokens = list(tokens)
+        try:
+            float(tokens[0])
+        except ValueError:
+            volume_file = tokens.pop(0)
+        for i, tok in enumerate(tokens[:4]):
+            vol_pos_scale[i] = float(tok)
+    return volume_file, vol_pos_scale
+
+
+def parse_volume_args(occurrences, default_file=None):
+    """All --volume occurrences: occurrence k's file maps to volume source
+    k; the placement floats accumulate last-wins.
+    Returns ([file_or_None per source index], [x, y, z, scale])."""
+    files = []
+    vol_pos_scale = [0.0, 0.0, 0.0, 10.0]
+    for k, tokens in enumerate(occurrences or [None]):
+        f, vol_pos_scale = parse_volume_arg(
+            tokens, default_file=(default_file if k == 0 else None),
+            vol_pos_scale=vol_pos_scale)
+        files.append(f)
+    return files, vol_pos_scale
+
+
+def write_image(path: str, img: torch.Tensor) -> None:
+    write_png(path, srgb_encode(img.float()).cpu().numpy())
+
+
+def main(argv=None) -> None:
+    args = build_arg_parser().parse_args(argv)
+    if args.mesh:
+        raise _unported("the mesh pass (--mesh)")
+    if args.stats:
+        raise _unported("the per-frame cull/LOD stats (--stats)")
+    if not args.warp and not torch.cuda.is_available():
+        sys.exit("multivolumes_tpu_torch.app: no CUDA device; pass --warp "
+                 "to render on the CPU")
+    device = torch.device("cpu" if args.warp else "cuda")
+
+    volume_files, vol_pos_scale = parse_volume_args(
+        args.volume, default_file=args.volumeFile)
+    cfg = RenderConfig(
+        width=args.width,
+        height=args.height,
+        grid_size=args.gridSize,
+        light_grid_size=args.lightGridSize,
+        max_ray_samples=args.maxRaySamples,
+        max_light_samples=args.maxLightSamples,
+        num_volumes=args.numVolumes,
+        num_volume_srcs=min(args.numVolumes, 10),
+        vol_pos_scale=tuple(vol_pos_scale),
+        mesh_pos_scale=tuple(args.meshPos),
+        march_mode=args.march,
+    )
+    if args.bf16 is not None:
+        cfg = cfg.with_(use_bf16=args.bf16)
+    engine = MultiRayCaster(cfg, device=device)
+    for k, volume_file in enumerate(volume_files[:cfg.num_volume_srcs]):
+        if volume_file:
+            engine.load_volume_file(k, volume_file)
+    if args.radiance:
+        engine.set_radiance_file(args.radiance)
+
+    aspect = cfg.aspect_ratio
+    # the reference ticks a StepTimer every frame (`MultiVolumes::OnUpdate`,
+    # MultiVolumes.cpp:320-322); offline the animation advances at the
+    # demo's nominal 60 Hz per rendered frame, and the timer gives the
+    # wall-clock stats and fixed-timestep pacing
+    timer = StepTimer()
+    if args.fixedTimestep:
+        timer.set_fixed_time_step(True)
+        timer.set_target_elapsed_seconds(1.0 / args.fixedTimestep)
+    img = None
+    ui = {"paused": False, "animate": args.animate,
+          "taa": not args.no_taa, "fps": True, "screenshot": False}
+    anim_t = 0.0
+    polling = args.interactive
+    for f in range(args.frames):
+        if polling:
+            cmds, eof = _poll_commands()
+            polling = not eof
+            if not all([apply_command(cmd, engine, ui) for cmd in cmds]):
+                break
+        if ui["animate"]:
+            camera = cam_lib.orbit_camera(anim_t, aspect, device=device)
+            if not ui["paused"]:          # Space freezes the clock
+                anim_t += 1.0 / 60.0
+        else:
+            camera = cam_lib.default_camera(aspect, device=device)
+        t0 = time.perf_counter()
+        img = engine.render(camera, use_taa=ui["taa"])
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        timer.tick()
+        if ui["screenshot"]:              # F11: save this frame now
+            ui["screenshot"] = False
+            shot = f"{args.out.rsplit('.', 1)[0]}_f{f}.png"
+            write_image(shot, img)
+            print(f"wrote {shot}")
+        msg = f"frame {f}: {(time.perf_counter() - t0) * 1000:.1f} ms"
+        if timer.frames_per_second and ui["fps"]:
+            msg += f" | {timer.frames_per_second} fps"
+        print(msg, flush=True)
+
+    if img is not None:
+        write_image(args.out, img)
+        print(f"wrote {args.out}")
+
+
+if __name__ == "__main__":
+    main()

@@ -19,7 +19,7 @@ import torch
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"sweep": 0, "composite": 0, "light_self_scan": 0,
-            "light_advect_mul": 0}
+            "light_advect_mul": 0, "taa": 0}
 
 IMPLS = (None, "kernel", "plain")
 

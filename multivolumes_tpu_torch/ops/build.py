@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`) into
-one shared library with a plain C interface, at first use, under
+Every `csrc/*.cu` file is compiled by its own `nvcc` for Hopper
+(`sm_90a`), all of them at once, and the objects are linked into one
+shared library with a plain C interface, at first use, under
 `build/torch_ext/` at the repository root (listed in `.gitignore`), and
 loaded with `ctypes`. The library's file name carries a hash of the
 sources and flags, so an edited kernel is rebuilt and a stale build is
@@ -30,7 +31,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_ext"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-Xcompiler", "-fPIC", "-lineinfo")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +43,7 @@ SIGNATURES = {
                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "mv_light_self_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "mv_light_advect_mul": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "mv_taa_resolve": [_P, _P, _P, _P, _P, _I, _I, _P],
 }
 
 
@@ -69,20 +71,38 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _check(cmd, returncode: int, stdout: str, stderr: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}"
+                           f"\n{stdout}\n{stderr}")
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """Compile (if needed) and load the kernel library; raises on failure."""
-    out = BUILD_DIR / f"libmv_kernels_{_digest()}.so"
+    digest = _digest()
+    out = BUILD_DIR / f"libmv_kernels_{digest}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+        tag = f"{digest}.tmp{os.getpid()}"
+        nvcc = nvcc_path()
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = BUILD_DIR / f"{src.stem}_{tag}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        done = [(cmd, proc, *proc.communicate()) for cmd, _obj, proc in jobs]
+        for cmd, proc, stdout, stderr in done:
+            _check(cmd, proc.returncode, stdout, stderr)
+        tmp = BUILD_DIR / f"libmv_kernels_{tag}.so"
+        cmd = [nvcc, "-shared", "-o", str(tmp),
+               *[str(obj) for _cmd, obj, _proc in jobs]]
         proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}\n"
-                               f"{proc.stderr}")
+        _check(cmd, proc.returncode, proc.stdout, proc.stderr)
+        for _cmd, obj, _proc in jobs:
+            obj.unlink()
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     for name, args in SIGNATURES.items():

@@ -1,11 +1,12 @@
 """The frame: `(state, camera) -> (image, hdr, state)`.
 
-Counterpart of `multivolumes_tpu/render/frame.py:render_frame` for the
-main path without a mesh, in the order of its passes:
+Counterpart of `multivolumes_tpu/render/frame.py:render_frame` and
+`render_frames` for the main path without a mesh, in the order of its
+passes:
 
     prep (per-object matrices, cull/LOD) -> light (cohort refresh, B3/B4)
     -> sweep (LOD cube-map march, B1) -> sky -> composite (tile OIT, B2)
-    -> tail (background blend, tone map)
+    -> tail (background blend) -> taa (TAA resolve, B5) -> tone map
 
 PyTorch runs eagerly, so there is no jit boundary; the frame reads no
 device value on the host except where the composite prep checks the swap
@@ -15,14 +16,16 @@ flags. The light stacks of `state` are updated in place.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 from multivolumes_tpu.config import RenderConfig
 from multivolumes_tpu_torch.core.camera import Camera
 from multivolumes_tpu_torch.render import cull as cull_lib
-from multivolumes_tpu_torch.render import lightsweep, postprocess, tilecast
+from multivolumes_tpu_torch.render import lightsweep, postprocess
+from multivolumes_tpu_torch.render import taa as taa_lib
+from multivolumes_tpu_torch.render import tilecast
 from multivolumes_tpu_torch.render import sweep as sweep_lib
 from multivolumes_tpu_torch.render import warp as warp_lib
 from multivolumes_tpu_torch.render.perframe import build_per_object
@@ -30,18 +33,16 @@ from multivolumes_tpu_torch.scene.state import SceneState, to_light_sweep
 
 
 class FrameOutput(NamedTuple):
-    image: torch.Tensor   # (H, W, 3) display-mapped
-    hdr: torch.Tensor     # (H, W, 4) pre-tonemap scene colour
+    image: torch.Tensor   # (H, W, 3) display-mapped; (3, H, W) if planar
+    hdr: torch.Tensor     # (H, W, 4) pre-tonemap scene colour; (4, H, W)
     state: SceneState
 
 
-def check_supported(config: RenderConfig, use_taa: bool, mesh=None,
+def check_supported(config: RenderConfig, mesh=None,
                     show_mesh: Optional[bool] = None) -> None:
     """Raise for the settings whose passes are not ported yet (each is a
     queue entry in ROADMAP.md)."""
     missing = []
-    if use_taa:
-        missing.append("use_taa=True (the TAA resolve, kernel B5)")
     if show_mesh if show_mesh is not None else config.show_mesh:
         missing.append("the mesh pass")
     if mesh is not None:
@@ -64,14 +65,16 @@ def check_supported(config: RenderConfig, use_taa: bool, mesh=None,
 
 
 def render_frame(state: SceneState, camera: Camera, config: RenderConfig,
-                 show_mesh: Optional[bool] = None, use_taa: bool = False,
-                 mesh=None, impl: str | None = None,
+                 show_mesh: Optional[bool] = None, use_taa: bool = True,
+                 mesh=None, planar: bool = False, impl: str | None = None,
                  timer=None) -> FrameOutput:
     """Render one frame and advance the state (frame index, the light
-    cohort's maps and footprints). `impl` forces the kernels' side (see
-    `ops`); `timer`, if given, is called with each pass name as the pass
-    starts and with None at the end."""
-    check_supported(config, use_taa, mesh, show_mesh)
+    cohort's maps and footprints, the TAA history). `planar` returns the
+    image and hdr channel-leading, the image tone-mapped inside the TAA
+    resolve. `impl` forces the kernels' side (see `ops`); `timer`, if
+    given, is called with each pass name as the pass starts and with None
+    at the end."""
+    check_supported(config, mesh, show_mesh)
     width, height = config.width, config.height
     mark = timer if timer is not None else (lambda name: None)
 
@@ -138,11 +141,44 @@ def render_frame(state: SceneState, camera: Camera, config: RenderConfig,
         mv = postprocess._upsample_matrix(height, ch, dev)
         vr, vg, vb, va = (mv @ x @ mu.T for x in (vr, vg, vb, va))
     t = 1.0 - va
+    # no mesh: the background is the sky, of alpha 0, so sc_a = va
     sc = (vr + t * bg_r, vg + t * bg_g, vb + t * bg_b, va)
-    image = torch.stack(postprocess.tone_map_ch(*sc[:3]), dim=-1)
-    hdr = torch.stack(sc, dim=-1)
+
+    # --- TAA (no mesh: nothing writes velocity) + tone map ---------------
+    image = None
+    if use_taa:
+        mark("taa")
+        taa_out = taa_lib.temporal_aa(sc, state.taa_history, None,
+                                      tonemap_out=planar, impl=impl)
+        if planar:
+            (rr, rg, rb), new_history, image = taa_out
+        else:
+            (rr, rg, rb), new_history = taa_out
+    else:
+        rr, rg, rb = sc[:3]
+        new_history = state.taa_history
+    mark("tonemap")
+    ax = 0 if planar else -1
+    if image is None:
+        image = torch.stack(postprocess.tone_map_ch(rr, rg, rb), dim=ax)
+    hdr = torch.stack(sc, dim=ax)
     mark(None)
 
     new_state = dataclasses.replace(state, frame_idx=state.frame_idx + 1,
-                                    light_sout=light_sout)
+                                    light_sout=light_sout,
+                                    taa_history=new_history)
     return FrameOutput(image=image, hdr=hdr, state=new_state)
+
+
+def render_frames(state: SceneState, cameras: Sequence[Camera],
+                  config: RenderConfig, use_taa: bool = True):
+    """Render K frames, one per camera, carrying the state from each to
+    the next exactly as K `render_frame` calls do. Returns ((K, 3, H, W)
+    planar display images, the advanced state)."""
+    images = []
+    for camera in cameras:
+        out = render_frame(state, camera, config, use_taa=use_taa,
+                           planar=True)
+        images.append(out.image)
+        state = out.state
+    return torch.stack(images, 0), state

@@ -1,9 +1,10 @@
 """Display mapping and sky rendering.
 
-Counterpart of `tone_map_ch`, `_upsample_matrix` and `render_environment`
-in `multivolumes_tpu/render/postprocess.py`: the tone map of
-`PSToneMap.hlsl:19-28` and the environment pass of `PSEnvironment.hlsl:
-46-69` (sampled at reduced resolution, bilinearly upsampled).
+Counterpart of `tone_map_ch`, `_upsample_matrix`, `render_environment`
+and `srgb_encode` in `multivolumes_tpu/render/postprocess.py`: the tone
+map of `PSToneMap.hlsl:19-28`, the environment pass of `PSEnvironment.hlsl:
+46-69` (sampled at reduced resolution, bilinearly upsampled) and the
+sRGB encode of the PNG output.
 """
 
 from __future__ import annotations
@@ -67,3 +68,11 @@ def render_environment(radiance, screen_to_world, eye, width: int,
     mu = _upsample_matrix(width, wl, dev)
     mv = _upsample_matrix(height, hl, dev)
     return tuple(mv @ c @ mu.T for c in low)
+
+
+def srgb_encode(c):
+    """Linear -> sRGB for PNG output (the reference presents to an
+    R8G8B8A8_UNORM swap chain; the encode here is explicit)."""
+    c = torch.clamp(c, 0.0, 1.0)
+    return torch.where(c <= 0.0031308, 12.92 * c,
+                       1.055 * torch.pow(c, 1 / 2.4) - 0.055)

@@ -1,7 +1,7 @@
 """Scene and frame state as a dataclass of tensors.
 
-Counterpart of `multivolumes_tpu/scene/state.py` for the no-mesh frame.
-Differences from the JAX state, each deliberate:
+Counterpart of `multivolumes_tpu/scene/state.py` for the no-mesh frame,
+TAA history included. Differences from the JAX state, each deliberate:
 
 * no oriented 3-variant stacks. The sweep kernel folds the per-face
   orientation (a permutation plus flips, `sweep.FACE_VARIANT` /
@@ -10,8 +10,7 @@ Differences from the JAX state, each deliberate:
   (N, L, L, L, 4) in the sweep dtype, the light's 4th channel zero so a
   texel is one aligned load. `vol_zmax` is computed per axis from the
   plain stack;
-* no mesh fields and no TAA history: the mesh pass and the TAA resolve
-  are not ported yet;
+* no mesh fields: the mesh pass is not ported yet;
 * `frame_idx` is a Python int (the cohort ids are host arithmetic), and
   the frame updates the light stacks in place.
 """
@@ -50,6 +49,8 @@ class SceneState:
     rho_light: torch.Tensor      # (N_src, L, L, L)
     ao_static: torch.Tensor      # (N_src, L, L, L)
     grad_dir: torch.Tensor       # (N_src, 3, L, L, L)
+    taa_history: torch.Tensor    # (4, H, W) f32 resolved colour + history
+                                 # metadata (channel 3)
 
 
 def sweep_dtype(config: RenderConfig) -> torch.dtype:
@@ -163,6 +164,7 @@ def create_scene(config: RenderConfig, device=None) -> SceneState:
         rho_light=rho_light,
         ao_static=ao_static,
         grad_dir=grad_dir,
+        taa_history=torch.zeros((4, config.height, config.width), **f32),
     )
 
 
@@ -177,9 +179,8 @@ def state_from_numpy(d: dict, device=None, dtype=None) -> SceneState:
                  else torch.float32)
 
     def t(name, dt=torch.float32):
-        return torch.from_numpy(
-            np.ascontiguousarray(np.asarray(d[name], np.float32))).to(
-                device=device, dtype=dt)
+        return torch.from_numpy(np.array(d[name], np.float32)).to(
+            device=device, dtype=dt)
 
     vols = t("volumes")
     vols_sweep = vols.to(dtype)
@@ -203,4 +204,5 @@ def state_from_numpy(d: dict, device=None, dtype=None) -> SceneState:
         rho_light=t("rho_light"),
         ao_static=t("ao_static"),
         grad_dir=t("grad_dir"),
+        taa_history=t("taa_history"),
     )

@@ -61,6 +61,17 @@ def init_grid_variant(grid_size: int, seed: int) -> np.ndarray:
     return np.concatenate([color, a[..., None]], axis=-1).astype(np.float32)
 
 
+def r32f_to_rgba(density, device=None) -> torch.Tensor:
+    """An imported R32F density grid (D, H, W) -> the engine's RGBA layout
+    (`CSR32FToRGBA16F.hlsl:16-26`): white albedo, alpha = density / 4.
+    The reference also resamples to the engine grid through a linear
+    sampler; callers resize first if the shapes differ."""
+    density = torch.from_numpy(np.array(density, np.float32)).to(device)
+    rgb = torch.ones(density.shape + (3,), dtype=torch.float32,
+                     device=density.device)
+    return torch.cat([rgb, density[..., None] * 0.25], dim=-1)
+
+
 def make_volume_sources(num_srcs: int, grid_size: int,
                         device=None) -> torch.Tensor:
     """Stack of source density textures: (num_srcs, D, H, W, 4) f32.

@@ -1,8 +1,8 @@
 """The port's whole slice against the JAX package: `create_scene`, and
-`render_frame(use_taa=False)` over two orbit frames from the same state
-(image and advanced state), in f32 and in the default bf16; the engine;
-and the port's import boundary. Image tolerance: mean < 2e-3,
-p99.9 < 3e-2 (tests/test_goldens.py:37-41).
+`render_frame(use_taa=True)` over two orbit frames from the same state
+(image and advanced state, TAA history included), in f32 and in the
+default bf16; the engine; and the port's import boundary. Image
+tolerance: mean < 2e-3, p99.9 < 3e-2 (tests/test_goldens.py:37-41).
 
 The JAX reference renders with `light_axis` baked the way its engine
 bakes it (argmax |light dir|, ties to z): the default light (75, 75, -75)
@@ -50,7 +50,7 @@ def frames(request, jax_scene_f32):
     st0 = (jax_scene_f32 if request.param == "f32"
            else jstate.create_scene(cfg))
     step = jax.jit(lambda s, c: jframe.render_frame(s, c, cfg,
-                                                    use_taa=False))
+                                                    use_taa=True))
     outs, st = [], st0
     for tm in TIMES:
         out = step(st, jcam.orbit_camera(tm, cfg.aspect_ratio))
@@ -73,6 +73,13 @@ def test_render_frame_matches_jax(frames):
                                    atol=1e-4, rtol=1e-5)
         np.testing.assert_allclose(n(ps.light_sout), st_j["light_sout"],
                                    atol=1e-5)
+        # the resolved HDR colour at the image's limits; the history count
+        # (channel 3) depends only on the frame count
+        mean, p999, mx = image_stats(ps.taa_history[:3],
+                                     st_j["taa_history"][:3], 99.9)
+        assert mean < 2e-3 and p999 < 3e-2, (tm, mean, p999, mx)
+        np.testing.assert_allclose(n(ps.taa_history[3]),
+                                   st_j["taa_history"][3], atol=1e-6)
     assert float(out.hdr[..., 3].max()) > 0.2  # volumes on screen
 
 
@@ -112,22 +119,23 @@ def test_engine_renders_with_baked_axis():
 
 
 @pytest.mark.parametrize("change", [
-    dict(use_taa=True), dict(show_mesh=True),
+    dict(config=dict(lod_bucket_caps=None)), dict(show_mesh=True),
     dict(config=dict(march_mode="reference")),
     dict(config=dict(composite_mode="gather")),
     dict(config=dict(point_light=True)), dict(mesh=object())])
 def test_unported_settings_raise(change):
     cfg = CONFIGS["f32"].with_(**change.pop("config", {}))
-    kw = {"use_taa": False, **change}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pframe.check_supported(cfg, **kw)
+        pframe.check_supported(cfg, **change)
 
 
 def test_port_imports_no_jax():
     code = ("import sys\n"
             "import multivolumes_tpu_torch\n"
             "from multivolumes_tpu_torch import engine\n"
-            "from multivolumes_tpu_torch.render import frame\n"
+            "from multivolumes_tpu_torch.render import frame, taa\n"
+            "from multivolumes_tpu_torch.scene import io_dds\n"
+            "from multivolumes_tpu_torch import app\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root)

@@ -1,0 +1,47 @@
+"""The port's frames against the pinned golden images of the JAX package
+(tests/goldens/*.npz, written by tools/make_goldens.py): the port's own
+`create_scene`, then `render_case`'s loop (orbit camera at f/60, TAA on),
+at the limits of tests/test_goldens.py:37-41 (mean < 2e-3, p99.9 < 3e-2).
+
+`reference_4vol` needs the reference march twins and `fast_4vol_mesh` the
+mesh pass; both wait (ROADMAP.md)."""
+
+import os
+
+import numpy as np
+import pytest
+
+from multivolumes_tpu_torch.core import camera as cam_lib
+from multivolumes_tpu_torch.render import frame as frame_lib
+from multivolumes_tpu_torch.scene import state as state_lib
+from tools.make_goldens import GOLDEN_DIR, golden_cases
+
+PORTED = ("fast_4vol", "cfgmat_nonsquare", "cfgmat_odd_viewport",
+          "cfgmat_half_res")
+CASES = {name: (cfg, frames) for name, cfg, frames, _mesh in golden_cases()
+         if name in PORTED}
+
+
+def render_case(cfg, frames):
+    """tools/make_goldens.py:render_case without the mesh, on the port."""
+    state = state_lib.create_scene(cfg)
+    img = None
+    for f in range(frames):
+        camera = cam_lib.orbit_camera(f / 60.0, cfg.aspect_ratio)
+        out = frame_lib.render_frame(state, camera, cfg, use_taa=True)
+        img, state = out.image, out.state
+    return img.numpy()
+
+
+@pytest.mark.parametrize("name", PORTED)
+def test_port_matches_golden(name):
+    cfg, frames = CASES[name]
+    want = np.load(os.path.join(GOLDEN_DIR, f"{name}.npz"))["image"].astype(
+        np.float32)
+    got = render_case(cfg, frames)
+    assert got.shape == want.shape
+    diff = np.abs(got - want)
+    assert diff.mean() < 2e-3, f"golden {name}: mean {diff.mean():.2e}"
+    assert np.percentile(diff, 99.9) < 3e-2, (
+        f"golden {name}: p99.9 {np.percentile(diff, 99.9):.2e} "
+        f"max {diff.max():.2e}")

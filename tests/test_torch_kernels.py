@@ -8,18 +8,17 @@ the card it runs without them:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py -q
 """
 
-import dataclasses
-
 import numpy as np
 import pytest
 import torch
-from torch_parity import cuda_device, image_stats
+from torch_parity import clone_state, cuda_device, image_stats, taa_operands
 
 from multivolumes_tpu.config import RenderConfig
 from multivolumes_tpu_torch import ops
 from multivolumes_tpu_torch.core import camera as cam_lib
 from multivolumes_tpu_torch.ops import lightsweep as light_ops
 from multivolumes_tpu_torch.ops import sweep as sweep_ops
+from multivolumes_tpu_torch.ops import taa as taa_ops
 from multivolumes_tpu_torch.render import frame as frame_lib
 from multivolumes_tpu_torch.render import sweep as sweep_lib
 from multivolumes_tpu_torch.render import tilecast
@@ -66,13 +65,6 @@ def _b1_case(device, dtype, seed=0, n_src=2, d=12, dl=8, s=16):
     return ([to(a) for a in args], {k: to(v) for k, v in kw.items()})
 
 
-def _clone(state):
-    return dataclasses.replace(state, **{
-        f.name: getattr(state, f.name).clone()
-        for f in dataclasses.fields(state)
-        if isinstance(getattr(state, f.name), torch.Tensor)})
-
-
 def test_dispatch_rule_on_cpu():
     rho, du, dv, f, _t = _scan_case("cpu", c=1, l=6)
     ops.reset_launches()
@@ -88,6 +80,24 @@ def test_dispatch_rule_on_cpu():
     args, kw = _b1_case("cpu", torch.float32)
     with pytest.raises(ValueError, match="CUDA"):
         sweep_ops.sweep_march(*args, **kw, impl="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        taa_ops.taa_resolve(*taa_operands("cpu", 8, 8), impl="kernel")
+
+
+@pytest.mark.cuda
+def test_b5_kernel_matches_plain_on_card():
+    dev = cuda_device()
+    for h, w in ((72, 200), (52, 100), (800, 1280)):
+        cur, hist, blur = taa_operands(dev, h, w)
+        out_k, img_k = taa_ops.taa_resolve(cur, hist, blur, tonemap=True,
+                                           impl="kernel")
+        out_p, img_p = taa_ops.taa_resolve(cur, hist, blur, tonemap=True,
+                                           impl="plain")
+        torch.testing.assert_close(out_k, out_p, atol=2e-5, rtol=0)
+        torch.testing.assert_close(img_k, img_p, atol=2e-5, rtol=0)
+        torch.testing.assert_close(
+            taa_ops.taa_resolve(cur, hist, blur, impl="kernel"), out_k,
+            atol=0, rtol=0)
 
 
 @pytest.mark.cuda
@@ -149,7 +159,7 @@ def test_frame_kernels_match_plain_on_card(use_bf16):
     cfg = SMALL.with_(use_bf16=use_bf16)
     st = state_lib.create_scene(cfg, dev)
     cam = cam_lib.orbit_camera(0.3, cfg.aspect_ratio, device=dev)
-    copy = _clone(st)
+    copy = clone_state(st)
     ops.reset_launches()
     img_k = frame_lib.render_frame(st, cam, cfg, impl="kernel").image
     assert all(v > 0 for v in ops.LAUNCHES.values()), ops.LAUNCHES

@@ -58,6 +58,30 @@ def image_stats(a, b, pct: float):
     return float(d.mean()), float(np.percentile(d, pct)), float(d.max())
 
 
+def clone_state(state):
+    """A port SceneState with every tensor copied (frames update the light
+    stacks in place)."""
+    return dataclasses.replace(state, **{
+        f.name: getattr(state, f.name).clone()
+        for f in dataclasses.fields(state)
+        if isinstance(getattr(state, f.name), torch.Tensor)})
+
+
+def taa_operands(device, h, w, seed=0):
+    """Seeded B5 operands (cur, hist, blur) that reach the history blend:
+    half the alpha at 1, a random history with some full counts, and a
+    non-zero blur on half the pixels, so both clamp gammas and the count
+    run."""
+    rng = np.random.RandomState(seed)
+    cur = rng.rand(4, h, w).astype(np.float32) * 2.0
+    cur[3] = np.where(rng.rand(h, w) < 0.5, 1.0, 0.5)
+    hist = rng.rand(4, h, w).astype(np.float32)
+    hist[3] = np.where(rng.rand(h, w) < 0.3, 1.0, hist[3])
+    blur = np.where(rng.rand(h, w) < 0.5, 0.0, rng.rand(h, w) * 1.5)
+    return tuple(torch.tensor(a, dtype=torch.float32, device=device)
+                 for a in (cur, hist, blur))
+
+
 def cuda_device() -> torch.device:
     """The card, or skip: CUDA kernels have no CPU mode."""
     if not torch.cuda.is_available():
