@@ -11,22 +11,45 @@ Phases (any failure exits non-zero, and no result line is printed):
      operands the main path gives it (captured from the demo-scale scene
      and its frames; the TAA resolve from the third frame, so the history
      is not zero, with and without the fused tone map, and on a seeded
-     synthetic 1280x800 case with half the alpha at 1), with the parity
-     tolerance of the kernel's CPU test; times of both from CUDA events
-     after warm-up;
+     synthetic 1280x800 case with half the alpha at 1; the mesh variants
+     of B2 and B3 from a demo-scale frame with the mesh, where the depth
+     weights must move some seam pixels, and B3's also on the full light
+     refresh of `set_light` with a light from below the mesh's side, on
+     the volumes that hold a penumbra of its shadow: the demo's light is
+     above the volumes and the mesh lies low, so there it may shadow
+     none), with the parity tolerance of the kernel's card test; times of
+     both from CUDA events after warm-up, and each kernel's bound (below);
   4. the main path at the 64-volume 1280x800 demo scale (no mesh, TAA on):
      8 frames along the orbit through `MultiRayCaster.render`, then the
      same 8 cameras through `MultiRayCaster.render_block` from a copy of
      the starting state. Each path runs with the launch counts set to 0
-     just before it and read just after, and every kernel must have
-     launched in each; the block's images must equal the sequential ones
-     (atol 2e-5), and the image must be finite with real volume coverage;
-  5. three small frames with TAA rendered with impl="kernel" and with
+     just before it and read just after, and every kernel of the path
+     must have launched in each; the block's images must equal the
+     sequential ones (atol 2e-5), and the image must be finite with real
+     volume coverage;
+  5. the same with the opaque mesh: a closed test mesh of 69,960
+     triangles (the reference demo's bunny has 69,451; `bunny.obj` is not
+     in the repository) written to `build/`, loaded with `set_mesh` at the
+     demo placement, 8 orbit frames through `render` (the raster preset
+     picked before each frame from the host-side eye, as the app does:
+     the mesh's box projects at 272-340 px, the far preset with its
+     windows)
+     and `render_block`, with the mesh variants of B2 and B3 among the
+     kernels that must launch; then a close-up frame on the near preset;
+  6. three small frames with TAA rendered with impl="kernel" and with
      impl="plain" from the same state, compared with the golden-image
-     tolerance;
-  6. the app, `python -m multivolumes_tpu_torch.app` at the demo scale
-     for 4 animated frames, in its own process: exit code 0 and a
-     non-empty PNG.
+     tolerance, without and with the mesh;
+  7. the app, `python -m multivolumes_tpu_torch.app` at the demo scale
+     for 4 animated frames, in its own process, without and with
+     `--mesh`: exit code 0 and a non-empty PNG.
+
+Each kernel's bound (`bound_ms`) is the larger of two times: the bytes
+it must move (each input read once, each output written once) over the
+card's 3.35 TB/s, and a count of its f32 operations on this run's
+inputs over 67 TFLOP/s (the H100 SXM's f32 rate outside the tensor
+cores); the counts are lower bounds where the work depends on the data
+(see `bound`). No single PyTorch call computes any of these functions,
+so `library_ms` is null.
 
 The last line is `{"ok": true, "device": {...}}`; the line before it is
 the per-kernel JSON summary, and the one before that the `nvidia-smi`
@@ -51,12 +74,38 @@ _PALLAS = "multivolumes_tpu/ops/pallas/"
 KERNELS = {
     "sweep": (_CSRC + "sweep.cu", _PALLAS + "sweep_kernel.py:318"),
     "composite": (_CSRC + "composite.cu", _PALLAS + "composite_kernel.py:691"),
+    "composite_depth": (_CSRC + "composite.cu",
+                        _PALLAS + "composite_kernel.py:691"),
     "light_self_scan": (_CSRC + "lightsweep.cu",
                         _PALLAS + "lightsweep_kernel.py:96"),
+    "light_self_scan_sm": (_CSRC + "lightsweep.cu",
+                           _PALLAS + "lightsweep_kernel.py:96"),
     "light_advect_mul": (_CSRC + "lightsweep.cu",
                          _PALLAS + "lightsweep_kernel.py:152"),
     "taa": (_CSRC + "taa.cu", _PALLAS + "taa_kernel.py:226"),
 }
+# the kernels of the frame without and with the opaque mesh
+NO_MESH = ("sweep", "composite", "light_self_scan", "light_advect_mul", "taa")
+WITH_MESH = ("sweep", "composite_depth", "light_self_scan_sm",
+             "light_advect_mul", "taa")
+# summary row name -> (launch-count key, the path whose counts it reports)
+ROW_KERNEL = {"composite@depth": ("composite_depth", "mesh"),
+              "light_self_scan@sm": ("light_self_scan_sm", "mesh")}
+
+
+def row_kernel(name):
+    """Summary row name -> (launch-count key, path): the part before "@",
+    or before "-C<n>" for the shadow-map rows."""
+    return ROW_KERNEL.get(name.split("-C")[0], (name.split("@")[0], "plain"))
+
+# the card's rates for the bound: HBM3 bytes/s and f32 FLOP/s (H100 SXM)
+MEM_RATE = 3.35e12
+F32_RATE = 67e12
+MESH_TRIS = 70_000
+# a light from below the side of the mesh, so that it shadows some volumes
+LOW_LIGHT = (75.0, -30.0, -75.0)
+# the demo's mesh placement (`all64.bat`: -mesh bunny.obj 0 -9 0 1.8) is
+# the RenderConfig default mesh_pos_scale
 
 DEMO = dict(width=1280, height=800, grid_size=128, light_grid_size=96,
             max_ray_samples=256, max_light_samples=96, num_volumes=64,
@@ -117,10 +166,10 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare_kernel(name, fn, args, kwargs, tol, reps=(10, 2)):
+def compare_kernel(name, fn, args, kwargs, tol, bound_of, reps=(10, 2)):
     """Run wrapper `fn` with impl kernel and plain on the same operands;
     check the tolerance; return the summary entry (launches filled in
-    later)."""
+    later). `bound_of(args, kwargs)` -> (bytes, f32 operations)."""
     import torch
 
     got = fn(*args, **dict(kwargs, impl="kernel"))
@@ -138,12 +187,144 @@ def compare_kernel(name, fn, args, kwargs, tol, reps=(10, 2)):
     ms = cuda_ms(lambda: fn(*args, **dict(kwargs, impl="kernel")), reps[0])
     plain_ms = cuda_ms(lambda: fn(*args, **dict(kwargs, impl="plain")),
                        reps[1])
+    nbytes, flops = bound_of(args, kwargs)
+    t_bytes, t_ops = nbytes / MEM_RATE * 1e3, flops / F32_RATE * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
     log(f"[kernel] {name}: max_abs_err {max_err:.3e}  mean_abs_err "
-        f"{max(means):.3e}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
-    src, replaces = KERNELS[name.split("@")[0]]
+        f"{max(means):.3e}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
+        f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.3f} GFLOP)")
+    src, replaces = KERNELS[row_kernel(name)[0]]
     return {"name": name, "route": "cuda", "source": src,
             "replaces": replaces, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(int(t.numel()) * t.element_size() for t in tensors)
+
+
+def bound_sweep(args, kwargs):
+    """B1: the referenced source volumes and light stacks, the per-ray
+    parameters, the output; operations: the front-to-back update (14 f32
+    operations) of each sample between a live ray's s_in and s_end (a
+    lower bound: the trilinear taps and the skipped slabs are not
+    counted)."""
+    import torch
+
+    vols, light, tex, eye_f, params, smp, run, planes, size = args
+    ids = kwargs["light_ids"]
+    n_src = int(torch.unique(tex).numel())
+    live = params.active & run[:, :, None, None]
+    gz = 1.0 - eye_f[..., 2]                                  # (C, 6)
+    span = torch.clamp(params.s_end - params.s_in, min=0.0) \
+        * gz.abs()[:, :, None, None] * planes / 2.0
+    samples = float((span * live).sum())
+    out = 4 * live.shape[0] * 6 * 4 * size * size
+    return (n_src * vols[0].numel() * vols.element_size()
+            + int(ids.numel()) * light[0].numel() * light.element_size()
+            + _nbytes(*params) + out, 14.0 * samples)
+
+
+def bound_composite(args, kwargs):
+    """B2: the listed volumes' faces (their n_eff corners; with the depth
+    variant the depth corners of the volumes listed on mesh tiles), the
+    scene plane, the lists and the output; operations: the ray / box exit
+    and exit-face test of each (pixel, listed volume) pair (60 f32
+    operations, a lower bound: the warp of the pairs that pass is not
+    counted)."""
+    import torch
+
+    color, scene, tlist, counts, vol_flt, face_flt, th, tw = args[:8]
+    n = color.shape[0]
+    pairs = float(counts.sum()) * th * tw
+    listed = torch.zeros(n, dtype=torch.bool, device=color.device)
+    for t in range(tlist.shape[0]):
+        listed[tlist[t, :int(counts[t])].long()] = True
+    n_eff = vol_flt[:, 20]
+    corner = float((n_eff[listed] ** 2).sum()) * 6
+    nbytes = corner * 4 * color.element_size()
+    depth = kwargs.get("depth_sel")
+    if depth is not None:
+        from multivolumes_tpu_torch.ops.composite import mesh_tiles
+
+        on = mesh_tiles(scene, th, tw).flatten()
+        mlisted = torch.zeros_like(listed)
+        for t in torch.nonzero(on).flatten().tolist():
+            mlisted[tlist[t, :int(counts[t])].long()] = True
+        nbytes += float((n_eff[mlisted] ** 2).sum()) * 6 * 4
+    nbytes += _nbytes(scene, tlist, counts, vol_flt, face_flt) \
+        + 4 * scene.numel() * 4
+    return nbytes, 60.0 * pairs
+
+
+def bound_self_scan(args, kwargs):
+    """B3: density in, here out, the footprint out (+ the shadow plane);
+    operations per texel and slice: the 2-tap lerp (9) and the
+    attenuation (4, counting exp2 and log2 as one each), + the shadow
+    plane's lerp and compare (13)."""
+    rho = args[0]
+    c, l = rho.shape[0], rho.shape[1]
+    sm = kwargs.get("sm_vol", args[4] if len(args) > 4 else None)
+    per = 13.0 + (13.0 if sm is not None else 0.0)
+    nbytes = 2 * _nbytes(rho) + c * l * l * 4 * (2 if sm is not None else 1)
+    return nbytes, per * c * l ** 3
+
+
+def bound_advect(args, kwargs):
+    """B4: here in, t_in in, out; the 2-tap lerp and one multiply (10) per
+    texel and slice."""
+    here, t_in = args[0], args[1]
+    return 2 * _nbytes(here) + _nbytes(t_in), 10.0 * here.numel()
+
+
+def bound_taa(args, kwargs):
+    """B5: cur, hist and blur in, the history (and the image) out; nine
+    tone-mapped taps with their moments per pixel (130 f32 operations, a
+    lower bound)."""
+    cur, hist, blur = args[:3]
+    out = 4 + (3 if kwargs.get("tonemap") else 0)
+    pixels = cur.shape[1] * cur.shape[2]
+    return _nbytes(cur, hist, blur) + out * pixels * 4, 130.0 * pixels
+
+
+def write_torus_obj(path, n_tris: int, major: float = 3.0,
+                    minor: float = 1.2, y0: float = 2.0) -> str:
+    """A closed torus of about `n_tris` triangles as an OBJ (the numpy
+    helper of tests/torch_parity.py:write_test_mesh): the stand-in for
+    the demo's `bunny.obj`. At the demo placement it reaches into the
+    lowest volumes and its box projects at 272-340 px along the orbit
+    (613 px from the close-up's eye)."""
+    import numpy as np
+
+    nv = max(3, int(round(np.sqrt(n_tris / 4.0))))
+    nu = max(3, int(round(n_tris / (2.0 * nv))))
+    th = np.arange(nu) * (2.0 * np.pi / nu)
+    ph = np.arange(nv) * (2.0 * np.pi / nv)
+    t, p = np.meshgrid(th, ph, indexing="ij")
+    ring = major + minor * np.cos(p)
+    verts = np.stack([ring * np.cos(t), y0 + minor * np.sin(p),
+                      ring * np.sin(t)], -1).reshape(-1, 3)
+    i, j = np.meshgrid(np.arange(nu), np.arange(nv), indexing="ij")
+    a = i * nv + j
+    b = ((i + 1) % nu) * nv + j
+    c = ((i + 1) % nu) * nv + (j + 1) % nv
+    d = i * nv + (j + 1) % nv
+    faces = np.concatenate([np.stack([a, b, c], -1).reshape(-1, 3),
+                            np.stack([a, c, d], -1).reshape(-1, 3)])
+    v0, v1, v2 = verts[faces[0]]
+    centre = np.array([major * np.cos(th[0]), y0, major * np.sin(th[0])])
+    if np.dot(np.cross(v1 - v0, v2 - v0), v0 - centre) < 0:
+        faces = faces[:, [0, 2, 1]]
+    with open(path, "w") as f:
+        f.write(f"# torus, {len(faces)} triangles\n")
+        f.write("".join(f"v {x:.6f} {y:.6f} {z:.6f}\n"
+                        for x, y, z in verts))
+        f.write("".join(f"f {x + 1} {y + 1} {z + 1}\n"
+                        for x, y, z in faces))
+    return str(path)
 
 
 def allclose_tol(atol, rtol, what):
@@ -221,7 +402,7 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
 
-    from multivolumes_tpu.config import RenderConfig
+    from multivolumes_tpu_torch.config import RenderConfig
     from multivolumes_tpu_torch.ops import build
 
     # --- 2. build ---------------------------------------------------------
@@ -232,12 +413,24 @@ def main() -> int:
     # --- 3. each kernel against its plain version -------------------------
     dev = torch.device("cuda")
     cfg = RenderConfig(**DEMO)
+    mesh_path = write_torus_obj(os.path.join(HERE, "build",
+                                             "torus70k.obj"), MESH_TRIS)
     engine, results = phase_kernels(cfg, dev)
-    launches = phase_demo(engine, cfg, dev)
+    launches = {"plain": phase_demo(engine, cfg, dev, NO_MESH)}
+    del engine
+    mesh_engine, mesh_results = phase_mesh_kernels(cfg, dev, mesh_path)
+    results += mesh_results
+    launches["mesh"] = phase_demo(mesh_engine, cfg, dev, WITH_MESH,
+                                  closeup=True)
+    del mesh_engine
+    torch.cuda.empty_cache()
     for r in results:
-        r["launches"] = launches[r["name"].split("@")[0]]
+        key, path = row_kernel(r["name"])
+        r["launches"] = launches[path][key]
     phase_small(RenderConfig(**SMALL), dev)
+    phase_small(RenderConfig(**SMALL), dev, mesh_path=mesh_path)
     phase_app()
+    phase_app(mesh_path=mesh_path)
 
     log(smi_line)
     print(json.dumps({"kernels": results}), flush=True)
@@ -293,13 +486,14 @@ def phase_kernels(cfg, dev):
     k4.pop("impl", None)
     check(size == cfg.cube_map_size, f"sweep bucket 0 size {size}")
     results.append(compare_kernel("sweep", sweep_mod.sweep_march, a4, k4,
-                                  sweep_tol, reps=(10, 2)))
+                                  sweep_tol, bound_sweep, reps=(10, 2)))
     (a, k) = frame_calls["tile_composite"]
     k = dict(k)
     k.pop("impl", None)
     results.append(compare_kernel(
         "composite", tile_mod.tile_composite, a, k,
-        image_tol(3e-3, 99.5, 3e-2, "composite"), reps=(10, 1)))
+        image_tol(3e-3, 99.5, 3e-2, "composite"), bound_composite,
+        reps=(10, 1)))
     for cname, calls in (("C1", frame_calls), ("C8", init_calls)):
         (a, k) = calls["light_self_scan"]
         k = dict(k)
@@ -309,7 +503,8 @@ def phase_kernels(cfg, dev):
         check(a[0].shape[0] == int(cname[1:]), f"cohort {a[0].shape}")
         results.append(compare_kernel(f"light_self_scan@{cname}",
                                       light_ops.light_self_scan, a, k,
-                                      light_tol, reps=(10, 2)))
+                                      light_tol, bound_self_scan,
+                                      reps=(10, 2)))
         (a, k) = calls["light_advect_mul"]
         k = dict(k)
         k.pop("impl", None)
@@ -317,20 +512,136 @@ def phase_kernels(cfg, dev):
             a = tuple(x[:8] for x in a)
         results.append(compare_kernel(f"light_advect_mul@{cname}",
                                       light_ops.light_advect_mul, a, k,
-                                      light_tol, reps=(10, 2)))
+                                      light_tol, bound_advect,
+                                      reps=(10, 2)))
     taa_tol = allclose_tol(2e-5, 0.0, "taa")
     (a, _k) = taa_calls["taa_resolve"]
     check(float(a[1][3].min()) > 0.0, "frame 3's TAA history is still zero")
     for name, kw in (("taa@frame3", {}), ("taa@frame3+tonemap",
                                            dict(tonemap=True))):
         results.append(compare_kernel(name, taa_ops.taa_resolve, a, kw,
-                                      taa_tol, reps=(20, 3)))
+                                      taa_tol, bound_taa, reps=(20, 3)))
     results.append(compare_kernel(
         "taa@synthetic", taa_ops.taa_resolve,
         taa_synthetic(dev, cfg.height, cfg.width), dict(tonemap=True),
-        taa_tol, reps=(20, 3)))
+        taa_tol, bound_taa, reps=(20, 3)))
     del frame_calls, init_calls, taa_calls
     return engine, results
+
+
+def phase_mesh_kernels(cfg, dev, mesh_path):
+    """Build the demo scene with the test mesh and hold the mesh variants
+    of B2 (depth weights) and B3 (shadow map) against their plain
+    versions on the operands of one demo frame with the mesh, and B3's
+    also on the shadowed volumes of a full light refresh."""
+    import torch
+
+    from multivolumes_tpu_torch.core import camera as cam_lib
+    from multivolumes_tpu_torch.engine import MultiRayCaster
+    from multivolumes_tpu_torch.ops import lightsweep as light_ops
+    from multivolumes_tpu_torch.render import frame as frame_lib
+    from multivolumes_tpu_torch.render import tilecast as tile_mod
+
+    t0 = time.time()
+    engine = MultiRayCaster(cfg, device=dev)
+    # the full light refresh of set_mesh: every volume with the shadow map
+    with capture([(light_ops, "light_self_scan")]) as mesh_calls:
+        engine.set_mesh(mesh_path)
+    torch.cuda.synchronize()
+    log(f"[mesh] {int(engine.state.mesh_indices.shape[0])} triangles; "
+        f"scene with the mesh built in {time.time() - t0:.1f} s; far "
+        f"ladder {engine.config.raster_far_tiers} small "
+        f"{engine.config.raster_far_small}")
+    check(engine.config.raster_far_tiers is not None,
+          "the test mesh has no far ladder")
+    (a, k) = mesh_calls["light_self_scan"]
+    k = {name: x for name, x in k.items() if name != "impl"}
+    check(k.get("sm_vol") is not None, "no shadow map in set_mesh's refresh")
+    log(f"[mesh] set_mesh's refresh under the demo's light: "
+        f"{int((penumbra(a, k) > 0).sum())} of {a[0].shape[0]} volumes "
+        f"hold a penumbra")
+    # Under the demo's light, from above, the mesh (below the volumes'
+    # mid-plane) may shadow no volume texel. A light from below its side
+    # puts it between the light and some volumes: hold B3' on the full
+    # refresh of set_light there, on the volumes that hold a penumbra,
+    # then restore the demo's light (the same refresh, the same maps).
+    pos0 = engine.state.light_pos[:3].tolist()
+    col0 = engine.state.light_color.tolist()
+    with capture([(light_ops, "light_self_scan")]) as low_calls:
+        engine.set_light(LOW_LIGHT, col0[:3], col0[3])
+    engine.set_light(pos0, col0[:3], col0[3])
+    del mesh_calls
+    eye = (0.0, 6.0, 60.0)              # the orbit's first pose
+    preset = engine.select_raster_preset(eye)
+    cam = cam_lib.orbit_camera(0.0, cfg.aspect_ratio, device=dev)
+    probe = clone_state(engine.state)
+    with capture([(light_ops, "light_self_scan"),
+                  (tile_mod, "tile_composite")]) as calls:
+        frame_lib.render_frame(probe, cam, engine.config)
+    del probe
+    torch.cuda.synchronize()
+    results = []
+    (a, k) = calls["tile_composite"]
+    k = dict(k)
+    k.pop("impl", None)
+    check(k.get("depth_sel") is not None, "no cube depth in the mesh frame")
+    from multivolumes_tpu_torch.ops.composite import mesh_tiles
+
+    on = mesh_tiles(a[1], a[6], a[7])
+    log(f"[mesh] preset {preset}; {int(on.sum())} of {on.numel()} "
+        f"composite tiles hold a mesh pixel")
+    check(bool(on.any()), "no composite tile holds a mesh pixel")
+    # the depth weights must change the colour somewhere (seam pixels),
+    # or the comparison below could not tell a kernel that skips them
+    seam = (tile_mod.tile_composite(*a, **k, impl="kernel")
+            - tile_mod.tile_composite(*a, **dict(k, depth_sel=None),
+                                      impl="kernel")).abs().amax(0)
+    n_seam = int((seam > 1e-3).sum())
+    log(f"[mesh] the depth weights move {n_seam} pixels by more than 1e-3 "
+        f"(max {float(seam.max()):.3e})")
+    check(n_seam > 0, "the depth weights change no pixel of the mesh frame")
+    results.append(compare_kernel(
+        "composite@depth", tile_mod.tile_composite, a, k,
+        allclose_tol(1e-4, 1e-4, "composite@depth"), bound_composite,
+        reps=(10, 1)))
+    light_tol = allclose_tol(1e-5, 0.0, "light_self_scan@sm")
+    (a, k) = calls["light_self_scan"]
+    k = dict(k)
+    k.pop("impl", None)
+    check(k.get("sm_vol") is not None, "no shadow map in the light cohort")
+    log(f"[mesh] the frame's light cohort: {a[0].shape[0]} volume(s), "
+        f"{int((penumbra(a, k) > 0).sum())} with a penumbra")
+    results.append(compare_kernel(
+        "light_self_scan@sm-C1", light_ops.light_self_scan, a, k, light_tol,
+        bound_self_scan, reps=(10, 2)))
+    (a, k) = low_calls["light_self_scan"]
+    k = {name: x for name, x in k.items() if name != "impl"}
+    pen = penumbra(a, k)
+    shaded = torch.nonzero(pen).flatten()
+    log(f"[mesh] set_light{LOW_LIGHT}'s refresh: {shaded.numel()} of "
+        f"{a[0].shape[0]} volumes hold a penumbra (texels: "
+        f"{dict(zip(shaded.tolist(), pen[shaded].tolist()))})")
+    check(shaded.numel() > 0, "the mesh shadows no volume")
+    sel = shaded[:8]
+    a = tuple(x[sel] for x in a)
+    k = {name: x[sel] for name, x in k.items()}
+    results.append(compare_kernel(
+        f"light_self_scan@sm-C{sel.numel()}", light_ops.light_self_scan, a,
+        k, light_tol, bound_self_scan, reps=(10, 2)))
+    del calls, low_calls
+    return engine, results
+
+
+def penumbra(args, kwargs):
+    """(C,) int: per cohort volume, the texels the light reaches where the
+    shadow map's lit (here with the map over here without it, plain
+    versions) lies strictly between 0.01 and 0.99."""
+    from multivolumes_tpu_torch.ops import lightsweep as light_ops
+
+    with_sm = light_ops.light_self_scan(*args, **kwargs, impl="plain")[0]
+    without = light_ops.light_self_scan(*args, impl="plain")[0]
+    lit = with_sm / without.clamp(min=1e-30)
+    return ((without > 1e-4) & (lit > 0.01) & (lit < 0.99)).flatten(1).sum(1)
 
 
 def taa_synthetic(dev, h, w, seed=0):
@@ -350,10 +661,10 @@ def taa_synthetic(dev, h, w, seed=0):
                  for x in (cur, hist, blur))
 
 
-def drive(what, fn, frames):
+def drive(what, fn, frames, kernels):
     """Run fn() (which renders `frames` frames and returns the images) with
     the launch counts set to 0 just before and read just after; every
-    kernel must have launched."""
+    kernel of the path must have launched."""
     import torch
 
     from multivolumes_tpu_torch import ops
@@ -367,66 +678,86 @@ def drive(what, fn, frames):
     launches = dict(ops.LAUNCHES)
     log(f"[demo] {what}: {ms:.3f} ms/frame, mean of {frames} frames (host "
         f"clock); launches {launches}")
-    for name in KERNELS:
+    for name in kernels:
         check(launches[name] > 0,
               f"kernel {name} was not launched by the {what} frames")
     return out, launches
 
 
-def phase_demo(engine, cfg, dev, frames: int = 8):
+def phase_demo(engine, cfg, dev, kernels, frames: int = 8,
+               closeup: bool = False):
     """Drive the main path through the engine, frame by frame and as one
     block from the same starting state; return the launch counts of the
-    frame-by-frame run."""
+    frame-by-frame run. With a mesh, the raster preset is picked before
+    each frame from the host-side orbit eye, as the app does, and with
+    `closeup` one more frame is rendered close enough for the near
+    preset."""
+    import numpy as np
     import torch
 
     from multivolumes_tpu_torch.core import camera as cam_lib
     from multivolumes_tpu_torch.render import frame as frame_lib
 
-    cams = [cam_lib.orbit_camera(0.25 * i, cfg.aspect_ratio, device=dev)
-            for i in range(frames)]
+    what = "mesh demo" if engine.has_mesh else "demo"
+    times_s = [0.25 * i for i in range(frames)]
+    cams = [cam_lib.orbit_camera(tm, cfg.aspect_ratio, device=dev)
+            for tm in times_s]
+    eyes = [(np.sin(tm * 0.5) * 60.0, 6.0, np.cos(tm * 0.5) * 60.0)
+            for tm in times_s]
     start = clone_state(engine.state)
+    start_config = engine.config
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times = []
+    times, presets = [], []
 
     def render_each():
         imgs = []
-        for cam in cams:
+        for cam, eye in zip(cams, eyes):
             t0 = time.perf_counter()
+            if engine.has_mesh:
+                presets.append(engine.select_raster_preset(eye))
             imgs.append(engine.render(cam))
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         return imgs
 
-    seq, launches = drive("render", render_each, frames)
+    seq, launches = drive(f"{what} render", render_each, frames, kernels)
     # the copy of the starting state kept for render_block is not the
     # path's own memory
     copy_bytes = sum(getattr(start, f.name).nbytes
                      for f in dataclasses.fields(start)
                      if isinstance(getattr(start, f.name), torch.Tensor))
     peak = torch.cuda.max_memory_allocated() - copy_bytes
-    log(f"[demo] render ms/frame (host clock, sync per frame): "
+    log(f"[demo] {what} render ms/frame (host clock, sync per frame): "
         + " ".join(f"{t:.2f}" for t in times))
     steady = sorted(times[1:])
-    log(f"[demo] render median {steady[len(steady) // 2]:.3f} ms/frame over "
-        f"frames 2-{frames}; peak memory {peak / 2**30:.3f} GiB (without "
-        f"the {copy_bytes / 2**30:.3f} GiB copy of the starting state)")
+    log(f"[demo] {what} render median {steady[len(steady) // 2]:.3f} "
+        f"ms/frame over frames 2-{frames}; peak memory "
+        f"{peak / 2**30:.3f} GiB (without the {copy_bytes / 2**30:.3f} GiB "
+        f"copy of the starting state)")
     img = seq[-1]
     check(tuple(img.shape) == (cfg.height, cfg.width, 3),
           f"image shape {tuple(img.shape)}")
-    check(bool(torch.isfinite(img).all()), "non-finite demo image")
+    check(bool(torch.isfinite(img).all()), f"non-finite {what} image")
+    if presets:
+        log(f"[demo] {what} raster presets {presets}")
+        check(len(set(presets)) == 1, "the orbit changed the raster preset")
     end_state = engine.state
 
+    # the block renders every camera at one config: the orbit's preset
     engine.state = clone_state(start)
+    engine.config = start_config
+    if engine.has_mesh:
+        engine.select_raster_preset(eyes[0])
     del start
-    block, _ = drive("render_block", lambda: engine.render_block(cams),
-                     frames)
+    block, _ = drive(f"{what} render_block",
+                     lambda: engine.render_block(cams), frames, kernels)
     check(tuple(block.shape) == (frames, 3, cfg.height, cfg.width),
           f"block shape {tuple(block.shape)}")
     check(engine.state.frame_idx == end_state.frame_idx,
           "render_block advanced the state by another frame count")
     for f in range(frames):
-        allclose_tol(2e-5, 0.0, f"render_block frame {f} vs render")(
+        allclose_tol(2e-5, 0.0, f"{what} render_block frame {f} vs render")(
             block[f].permute(1, 2, 0), seq[f])
     del block, seq
 
@@ -444,25 +775,122 @@ def phase_demo(engine, cfg, dev, frames: int = 8):
     torch.cuda.synchronize()
     passes = {events[i][0]: events[i][1].elapsed_time(events[i + 1][1])
               for i in range(len(events) - 1)}
-    log("[demo] per pass (ms): " + " ".join(f"{n} {t:.3f}"
-                                           for n, t in passes.items()))
-    cover = float((out.hdr[..., 3] > 0.05).float().mean())
-    log(f"[demo] volume alpha > 0.05 on {cover:.3f} of pixels")
+    log(f"[demo] {what} per pass (ms): " + " ".join(
+        f"{n} {t:.3f}" for n, t in passes.items()))
+    alpha = out.hdr[..., 3]
+    if engine.has_mesh:
+        check("mesh" in passes, "the frame did not run the mesh pass")
+        # mesh pixels are opaque (alpha 1 to rounding); the volumes' OIT
+        # alpha is capped at 0.9997
+        mesh_cover = float((alpha > 0.9998).float().mean())
+        log(f"[demo] the mesh covers {mesh_cover:.4f} of the pixels")
+        check(mesh_cover > 0.0, "the mesh covers no pixel")
+    cover = float(((alpha > 0.05) & (alpha <= 0.9998)).float().mean())
+    log(f"[demo] {what} volume alpha > 0.05 on {cover:.3f} of pixels")
     check(cover > 0.02, f"volume coverage {cover:.4f} too small")
+
+    profile_frames(engine, cams, eyes, what)
+
+    if closeup:
+        # a close-up along the demo's orbit direction, for the near preset
+        eye = (0.0, 6.0, 30.0)
+        preset = engine.select_raster_preset(eye)
+        cam = cam_lib.make_camera(list(eye), [0.0, 0.0, 0.0],
+                                  cfg.aspect_ratio, device=dev)
+        t0 = time.perf_counter()
+        img = engine.render(cam)
+        torch.cuda.synchronize()
+        log(f"[demo] {what} close-up: preset {preset}, "
+            f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
+        check(preset == "near", f"the close-up picked {preset}")
+        check(bool(torch.isfinite(img).all()), "non-finite close-up image")
     return launches
 
 
-def phase_small(small, dev, frames: int = 3):
+def profile_frames(engine, cams, eyes, what, frames: int = 2):
+    """Two more frames under `torch.profiler`: the device's busy time and
+    kernels per frame, and for each pass its host time and the device time
+    of the kernels launched inside it (the profiler ties each kernel to
+    the host op that launched it), and the kernels that take the most
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from multivolumes_tpu_torch.render import frame as frame_lib
+
+    open_ranges = []
+
+    def mark(name):
+        if open_ranges:
+            open_ranges.pop().__exit__(None, None, None)
+        if name is not None:
+            r = record_function(f"pass:{name}")
+            r.__enter__()
+            open_ranges.append(r)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for cam, eye in list(zip(cams, eyes))[:frames]:
+            if engine.has_mesh:
+                engine.select_raster_preset(eye)
+            out = frame_lib.render_frame(engine.state, cam, engine.config,
+                                         timer=mark)
+            engine.state = out.state
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / frames
+    events = list(prof.events())
+    kernels = sorted(
+        (e for e in events if e.device_type == DeviceType.CUDA
+         and not e.name.startswith("pass:")
+         and not e.name.startswith(("Memcpy", "Memset"))),
+        key=lambda e: e.time_range.start)
+    ranges = [e for e in events if e.device_type == DeviceType.CPU
+              and e.name.startswith("pass:")]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / frames
+    if busy <= 0.0:
+        log(f"[profile] {what}: the profiler recorded no device time "
+            f"(device busy share not measured)")
+        return
+    log(f"[profile] {what}: {wall:.3f} ms/frame on the host clock "
+        f"(profiled), device busy {busy:.3f} ms/frame in "
+        f"{len(kernels) / frames:.0f} kernels/frame "
+        f"({busy / wall:.3f} of the frame)")
+    per = {}
+    for r in ranges:
+        p = per.setdefault(r.name[5:], [0.0, 0.0])
+        p[0] += r.time_range.elapsed_us() / 1e3 / frames
+        p[1] += r.device_time_total / 1e3 / frames
+    log(f"[profile] {what} per pass (host ms / device ms per frame; device "
+        f"ms of the passes {sum(d for _h, d in per.values()):.3f}): "
+        + "; ".join(f"{n} {h:.3f} / {d:.3f}" for n, (h, d) in per.items()))
+    by_name = {}
+    for e in kernels:
+        b = by_name.setdefault(e.name, [0.0, 0])
+        b[0] += e.time_range.elapsed_us() / 1e3 / frames
+        b[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    log(f"[profile] {what} top kernels (device ms per frame, launches per "
+        f"frame): " + "; ".join(f"{n[:60]} {t:.3f} x{c / frames:.0f}"
+                                for n, (t, c) in top))
+
+
+def phase_small(small, dev, frames: int = 3, mesh_path=None):
     """Three frames with TAA rendered with impl="kernel" and with
     impl="plain" from the same state, each held to the golden-image
-    tolerance."""
+    tolerance; with `mesh_path`, with the mesh."""
     import torch
 
     from multivolumes_tpu_torch.core import camera as cam_lib
     from multivolumes_tpu_torch.engine import MultiRayCaster
     from multivolumes_tpu_torch.render import frame as frame_lib
 
+    what = "small frame" + (" with the mesh" if mesh_path else "")
     eng_s = MultiRayCaster(small, device=dev)
+    if mesh_path:
+        eng_s.set_mesh(mesh_path)
     st_k, st_p = clone_state(eng_s.state), clone_state(eng_s.state)
     for f in range(frames):
         cam = cam_lib.orbit_camera(0.7 + f / 60.0, small.aspect_ratio,
@@ -471,31 +899,38 @@ def phase_small(small, dev, frames: int = 3):
                                        impl="kernel")
         out_p = frame_lib.render_frame(st_p, cam, eng_s.config, impl="plain")
         st_k, st_p = out_k.state, out_p.state
-        image_tol(2e-3, 99.9, 3e-2, f"small frame {f} kernel vs plain")(
+        image_tol(2e-3, 99.9, 3e-2, f"{what} {f} kernel vs plain")(
             out_k.image, out_p.image)
-        check(bool(torch.isfinite(out_k.image).all()),
-              "non-finite small frame")
+        check(bool(torch.isfinite(out_k.image).all()), f"non-finite {what}")
+    if mesh_path:
+        check(bool((out_k.hdr[..., 3] > 0.9998).any()),
+              "the mesh is not in the small frames")
 
 
-def phase_app(frames: int = 4):
-    """The app at the demo scale in its own process."""
-    out = os.path.join(HERE, "build", "chip_smoke_app.png")
+def phase_app(frames: int = 4, mesh_path=None):
+    """The app at the demo scale in its own process (with `--mesh` when
+    `mesh_path` is given)."""
+    name = "chip_smoke_app_mesh.png" if mesh_path else "chip_smoke_app.png"
+    out = os.path.join(HERE, "build", name)
     if os.path.exists(out):
         os.remove(out)
     cmd = [sys.executable, "-m", "multivolumes_tpu_torch.app",
            "--numVolumes", "64", "--frames", str(frames), "--animate",
            "--out", out]
+    if mesh_path:
+        cmd += ["--mesh", mesh_path]
     t0 = time.time()
     proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
                           timeout=600)
+    tag = "[app --mesh]" if mesh_path else "[app]"
     tail = proc.stdout.strip().splitlines()[-(frames + 1):]
     for line in tail:
-        log(f"[app] {line}")
+        log(f"{tag} {line}")
     check(proc.returncode == 0,
           f"app exited {proc.returncode}: {proc.stderr[-2000:]}")
     size = os.path.getsize(out) if os.path.exists(out) else 0
     check(size > 0, f"app wrote no PNG at {out}")
-    log(f"[app] rc 0, {size} byte PNG in {time.time() - t0:.1f} s")
+    log(f"{tag} rc 0, {size} byte PNG in {time.time() - t0:.1f} s")
 
 
 if __name__ == "__main__":

@@ -6,15 +6,16 @@ H100: the module tree mirrors the JAX package (`core/`, `scene/`,
 `render/`, `ops/`), plain tensor code is PyTorch, and each Pallas kernel
 on the ported path is a CUDA C++ kernel in `csrc/` (built for `sm_90a` at
 first use, `ops/build.py`) with a plain PyTorch version beside it
-(`ops/*.py`). The configuration is shared with the JAX package, whose
-`config` module imports no JAX. This package never imports `jax`.
+(`ops/*.py`). The package keeps its own copy of the configuration
+(`config.py`) and never imports `jax` or the JAX package.
 
-Ported so far: the whole system without a mesh, TAA included: the frame
-(`render/frame.py:render_frame`, `render_frames`), the engine with its
-setters (`engine.py`) and the offline app (`python -m
+Ported so far: the whole single-device system, TAA and the opaque mesh
+included: the frame (`render/frame.py:render_frame`, `render_frames`),
+the mesh pass (`render/mesh.py`), the engine with its setters and
+`set_mesh` (`engine.py`) and the offline app (`python -m
 multivolumes_tpu_torch.app`).
 """
 
-from multivolumes_tpu.config import RenderConfig, SharedConsts
+from multivolumes_tpu_torch.config import RenderConfig, SharedConsts
 
 __all__ = ["RenderConfig", "SharedConsts"]

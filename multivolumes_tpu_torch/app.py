@@ -7,10 +7,12 @@ scene with TAA (optionally along the orbit-camera animation of
 `MultiVolumes.cpp:328-337`) and writes a PNG screenshot, the F11 path
 (`MultiVolumes.cpp:744-764`). It renders on the CUDA device; `--warp`
 (the reference's software-adapter flag) renders on the CPU instead, and
-without `--warp` and without a CUDA device it exits non-zero. Run:
+without `--warp` and without a CUDA device it exits non-zero. `--mesh`
+loads an OBJ as the opaque mesh (the reference's `-mesh`); each frame
+then picks the mesh raster's preset from the host-side camera pose. Run:
 
     python -m multivolumes_tpu_torch.app --numVolumes 64 --frames 8 \\
-        --animate --out out.png
+        --animate --mesh bunny.obj --out out.png
     python -m multivolumes_tpu_torch.app --warp --width 96 --height 64 \\
         --gridSize 16 --lightGridSize 8 --numVolumes 4 --frames 2 --animate
 """
@@ -21,11 +23,12 @@ import argparse
 import sys
 import time
 
+import numpy as np
 import torch
 
-from multivolumes_tpu.config import RenderConfig
-from multivolumes_tpu.utils.png import write_png
-from multivolumes_tpu.utils.steptimer import StepTimer
+from multivolumes_tpu_torch.config import RenderConfig
+from multivolumes_tpu_torch.utils.png import write_png
+from multivolumes_tpu_torch.utils.steptimer import StepTimer
 from multivolumes_tpu_torch.core import camera as cam_lib
 from multivolumes_tpu_torch.engine import MultiRayCaster
 from multivolumes_tpu_torch.render.postprocess import srgb_encode
@@ -61,7 +64,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="accepted for reference CLI parity; adapter "
                         "selection does not apply")
     p.add_argument("--mesh", type=str, default=None,
-                   help="OBJ path (the mesh pass is not ported yet)")
+                   help="OBJ file of the opaque mesh (reference -mesh)")
     p.add_argument("--meshPos", nargs=4, type=float,
                    default=[0.0, -9.0, 0.0, 1.8],
                    metavar=("X", "Y", "Z", "SCALE"))
@@ -94,9 +97,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "hotkeys (`MultiVolumes::OnKeyUp`, "
                         "MultiVolumes.cpp:447-479): one letter per line: "
                         "[p]ause (Space), [a]nimate, [t] TAA, [f] FPS "
-                        "line (F1), [s] screenshot now (F11), [q]uit. "
-                        "[m]esh, [o] composite cycle and [w] march mode "
-                        "select passes not ported yet")
+                        "line (F1), [s] screenshot now (F11), [m]esh "
+                        "on/off, [q]uit. [o] composite cycle and [w] "
+                        "march mode select passes not ported yet")
     p.add_argument("--out", type=str, default="frame.png")
     return p
 
@@ -106,10 +109,16 @@ def apply_command(cmd: str, engine, ui: dict) -> bool:
     quit)."""
     if cmd == "q":
         return False
-    if cmd in ("m", "o", "w"):
-        raise _unported({"m": "the mesh pass ([m] hotkey)",
-                         "o": "the warp and gather composites ([o] hotkey)",
+    if cmd in ("o", "w"):
+        raise _unported({"o": "the warp and gather composites ([o] hotkey)",
                          "w": "the reference march ([w] hotkey)"}[cmd])
+    if cmd == "m":
+        if engine.has_mesh:
+            engine.config = engine.config.with_(
+                show_mesh=not engine.config.show_mesh)
+            print(f"mesh={engine.config.show_mesh}")
+        else:
+            print("no mesh loaded")
     if cmd in ("p", "a", "t", "f"):
         key = {"p": "paused", "a": "animate", "t": "taa", "f": "fps"}[cmd]
         ui[key] = not ui[key]
@@ -117,7 +126,7 @@ def apply_command(cmd: str, engine, ui: dict) -> bool:
     elif cmd == "s":
         ui["screenshot"] = True
     elif cmd:
-        print(f"unknown command {cmd!r} (p a t f s q)")
+        print(f"unknown command {cmd!r} (p a t f s m q)")
     return True
 
 
@@ -178,8 +187,6 @@ def write_image(path: str, img: torch.Tensor) -> None:
 
 def main(argv=None) -> None:
     args = build_arg_parser().parse_args(argv)
-    if args.mesh:
-        raise _unported("the mesh pass (--mesh)")
     if args.stats:
         raise _unported("the per-frame cull/LOD stats (--stats)")
     if not args.warp and not torch.cuda.is_available():
@@ -210,6 +217,8 @@ def main(argv=None) -> None:
             engine.load_volume_file(k, volume_file)
     if args.radiance:
         engine.set_radiance_file(args.radiance)
+    if args.mesh:
+        engine.set_mesh(args.mesh)
 
     aspect = cfg.aspect_ratio
     # the reference ticks a StepTimer every frame (`MultiVolumes::OnUpdate`,
@@ -233,10 +242,17 @@ def main(argv=None) -> None:
                 break
         if ui["animate"]:
             camera = cam_lib.orbit_camera(anim_t, aspect, device=device)
+            # host-side copy of the orbit eye (MultiVolumes.cpp:328-337)
+            # for the raster-preset pick: never a device read
+            t = anim_t * 0.5
+            eye_host = (np.sin(t) * 60.0, 6.0, np.cos(t) * 60.0)
             if not ui["paused"]:          # Space freezes the clock
                 anim_t += 1.0 / 60.0
         else:
             camera = cam_lib.default_camera(aspect, device=device)
+            eye_host = (4.0, 16.0, -80.0)   # MultiVolumes.cpp:273-278
+        if engine.has_mesh and engine.config.show_mesh:
+            engine.select_raster_preset(eye_host)
         t0 = time.perf_counter()
         img = engine.render(camera, use_taa=ui["taa"])
         if device.type == "cuda":

@@ -2,7 +2,8 @@
 
 Counterpart of `multivolumes_tpu/core/camera.py`: initial eye (4, 16, -80)
 looking at the origin, perspective fov pi/4 with zNear 1 / zFar 1000, and
-the orbit animation `eye = (sin(t/2)*60, 6, cos(t/2)*60)`.
+the orbit animation `eye = (sin(t/2)*60, 6, cos(t/2)*60)`. The cameras
+are made on the card unless `device` says otherwise.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ import dataclasses
 
 import torch
 
-from multivolumes_tpu.config import SharedConsts
+from multivolumes_tpu_torch.config import SharedConsts
 from multivolumes_tpu_torch.core import math3d
 
 
@@ -34,7 +35,7 @@ class Camera:
 def make_camera(eye, focus, aspect: float,
                 fov_y: float = SharedConsts.FOV_ANGLE_Y,
                 z_near: float = SharedConsts.Z_NEAR,
-                z_far: float = SharedConsts.Z_FAR, device=None) -> Camera:
+                z_far: float = SharedConsts.Z_FAR, device="cuda") -> Camera:
     eye = torch.as_tensor(eye, dtype=torch.float32, device=device)
     view = math3d.look_at_lh(eye, focus, [0.0, 1.0, 0.0])
     proj = math3d.perspective_fov_lh(fov_y, aspect, z_near, z_far,
@@ -42,13 +43,13 @@ def make_camera(eye, focus, aspect: float,
     return Camera(eye=eye, view=view, proj=proj)
 
 
-def default_camera(aspect: float, device=None) -> Camera:
+def default_camera(aspect: float, device="cuda") -> Camera:
     """Start pose from `MultiVolumes.cpp:273-278`."""
     return make_camera([4.0, 16.0, -80.0], [0.0, 0.0, 0.0], aspect,
                        device=device)
 
 
-def orbit_camera(time_s: float, aspect: float, device=None) -> Camera:
+def orbit_camera(time_s: float, aspect: float, device="cuda") -> Camera:
     """Auto-animation pose from `MultiVolumes.cpp:328-337`."""
     t = torch.tensor(time_s, dtype=torch.float32) * 0.5
     r = 60.0

@@ -91,3 +91,44 @@ def eval_irradiance(sh_coeffs, n):
         + 2.0 * c2 * (L[3] * x + L[1] * y + L[2] * z)
     )
     return torch.clamp(irr, min=0.0)
+
+
+def eval_irradiance_soa(sh_coeffs, x, y, z):
+    """`eval_irradiance` over scalar direction fields -> (r, g, b)."""
+    c1, c2, c3, c4 = 0.429043, 0.511664, 0.247708, 0.886227
+    L = sh_coeffs
+    outs = []
+    for ch in range(3):
+        irr = (
+            (c1 * (x * x - y * y)) * L[8, ch]
+            + (c3 * (3.0 * z * z - 1.0)) * L[6, ch]
+            + c4 * L[0, ch]
+            + 2.0 * c1 * (L[4, ch] * x * y + L[7, ch] * x * z
+                          + L[5, ch] * y * z)
+            + 2.0 * c2 * (L[3, ch] * x + L[1, ch] * y + L[2, ch] * z)
+        )
+        outs.append(torch.clamp(irr, min=0.0))
+    return tuple(outs)
+
+
+def eval_radiance_soa(sh_coeffs, x, y, z):
+    """Band-limited radiance sum_k c_k Y_k(d) over scalar direction fields
+    -> (r, g, b), clamped at 0 (the mesh's rough environment reflection)."""
+    ys = (
+        torch.full_like(x, 0.28209479177387814),
+        0.4886025119029199 * y,
+        0.4886025119029199 * z,
+        0.4886025119029199 * x,
+        1.0925484305920792 * x * y,
+        1.0925484305920792 * y * z,
+        0.31539156525252005 * (3.0 * z * z - 1.0),
+        1.0925484305920792 * x * z,
+        0.5462742152960396 * (x * x - y * y),
+    )
+    outs = []
+    for ch in range(3):
+        acc = ys[0] * sh_coeffs[0, ch]
+        for k in range(1, 9):
+            acc = acc + ys[k] * sh_coeffs[k, ch]
+        outs.append(torch.clamp(acc, min=0.0))
+    return tuple(outs)

@@ -1,7 +1,9 @@
-// Screen-tile OIT composite (B2), without the CubeCast depth weights.
+// Screen-tile OIT composite (B2), with and without the CubeCast depth
+// weights.
 //
 // Replaces multivolumes_tpu/ops/pallas/composite_kernel.py::
-// tile_composite_pallas (depth_sel=None: no scene mesh).
+// tile_composite_pallas: depth_sel=None (kernel<T, false>, no scene mesh)
+// and depth_sel given (kernel<T, true>, `_make_kernel(with_depth=True)`).
 //
 // What it computes, per screen pixel: for each volume on its tile's list
 // (render/tilecast.py::_tile_prep; list order = sorted-space volume id),
@@ -32,6 +34,21 @@
 // so the time tracks sum over tiles of pixels x list length. Channel-last
 // faces (one 8-byte load per tap) and a shared-memory face cache per tile
 // are later work.
+//
+// Depth variant (the frames with the opaque mesh, `PSCube.hlsli:51-108`).
+// The CTA first decides whether its 64 x 128 list tile holds a mesh pixel
+// (scene clip z in (0, 1)): its 256 threads scan the tile's 8192 depths
+// (32 coalesced loads each, mostly L2 hits, as the 32 CTAs of a tile read
+// the same plane) and vote with __syncthreads_or. The gate is part of the
+// result: at a face's edge the tent weights sum to less than 1, and the
+// normalisation below would change the colour of tiles without a mesh.
+// On a mesh tile each of the two warp rows also u-interpolates the cube
+// depth (f32 plane, view distance, read only there) with the colour's
+// tent weights, the row weight becomes wv * max(wd, 1e-6) with
+// wd = max(1 - 0.5 |d_scene - d_row|, 0), and the four channels are
+// normalised by the weight sum (floored at 1e-20). The extra cost is one
+// f32 tap pair per row and the tile scan; the no-mesh frames launch the
+// plain instantiation and are unchanged.
 
 #include "common.cuh"
 
@@ -43,6 +60,8 @@ constexpr float kBig = 1e30f;
 constexpr int kMaxLayers = 8;
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
+constexpr float kZNear = 1.0f;
+constexpr float kZFar = 1000.0f;
 
 __device__ __forceinline__ float safe(float x) {
   return fabsf(x) > kEps ? x : (x >= 0.0f ? kEps : -kEps);
@@ -60,11 +79,15 @@ __device__ __forceinline__ void slab(float o, float d, float* t_lo,
   *t_hi = fmaxf(t1, t2);
 }
 
-// u-tent interpolation of face row r at the isoline crossing of column x
-template <typename T>
-__device__ __forceinline__ float4 row_sample(const T* img, int s, int r,
-                                             float xg, const float* fq,
-                                             float hi) {
+// u-tent taps of face row r at the isoline crossing of column x
+struct RowTaps {
+  const float* fq;
+  int s, r, u0, u1;
+  float w0, w1;
+};
+
+__device__ __forceinline__ RowTaps row_taps(int s, int r, float xg,
+                                            const float* fq, float hi) {
   const float k0 = fq[3] - r * fq[6];
   const float k1 = fq[4] - r * fq[7];
   const float k2 = fq[5] - r * fq[8];
@@ -72,35 +95,72 @@ __device__ __forceinline__ float4 row_sample(const T* img, int s, int r,
   const float dq1 = fq[6] * xg + fq[7] * y1 + fq[8];
   const float cu = mv::clampf(finite((fq[0] * xg + fq[1] * y1 + fq[2])
                                      / safe(dq1)), 0.0f, hi);
-  const int u0 = (int)floorf(cu);
-  const int u1 = min(u0 + 1, s - 1);
-  const float w0 = fmaxf(1.0f - fabsf(cu - (float)u0), 0.0f);
-  const float w1 = fmaxf(1.0f - fabsf(cu - (float)(u0 + 1)), 0.0f);
-  const size_t pl = (size_t)s * s;
-  const T* p = img + (size_t)r * s;
-  return make_float4(mv::load1(p + u0) * w0 + mv::load1(p + u1) * w1,
-                     mv::load1(p + pl + u0) * w0 + mv::load1(p + pl + u1) * w1,
-                     mv::load1(p + 2 * pl + u0) * w0
-                         + mv::load1(p + 2 * pl + u1) * w1,
-                     mv::load1(p + 3 * pl + u0) * w0
-                         + mv::load1(p + 3 * pl + u1) * w1);
+  RowTaps t;
+  t.fq = fq;
+  t.s = s;
+  t.r = r;
+  t.u0 = (int)floorf(cu);
+  t.u1 = min(t.u0 + 1, s - 1);
+  t.w0 = fmaxf(1.0f - fabsf(cu - (float)t.u0), 0.0f);
+  t.w1 = fmaxf(1.0f - fabsf(cu - (float)(t.u0 + 1)), 0.0f);
+  return t;
 }
 
+// the four colour channels of row t.r (img: one face, (4, S, S))
 template <typename T>
+__device__ __forceinline__ float4 row_color(const T* img, const RowTaps& t) {
+  const size_t pl = (size_t)t.s * t.s;
+  const T* p = img + (size_t)t.r * t.s;
+  return make_float4(
+      mv::load1(p + t.u0) * t.w0 + mv::load1(p + t.u1) * t.w1,
+      mv::load1(p + pl + t.u0) * t.w0 + mv::load1(p + pl + t.u1) * t.w1,
+      mv::load1(p + 2 * pl + t.u0) * t.w0
+          + mv::load1(p + 2 * pl + t.u1) * t.w1,
+      mv::load1(p + 3 * pl + t.u0) * t.w0
+          + mv::load1(p + 3 * pl + t.u1) * t.w1);
+}
+
+// the cube depth of row t.r (dimg: one face, (S, S) f32)
+__device__ __forceinline__ float row_depth(const float* dimg,
+                                           const RowTaps& t) {
+  const float* p = dimg + (size_t)t.r * t.s;
+  return p[t.u0] * t.w0 + p[t.u1] * t.w1;
+}
+
+template <typename T, bool kDepth>
 __global__ void tile_composite_kernel(
-    const T* __restrict__ color, const int* __restrict__ tlist,
-    const int* __restrict__ counts, const float* __restrict__ vol_flt,
-    const float* __restrict__ face_flt, const float* __restrict__ scene,
-    float* __restrict__ out, int n, int s, int hp, int wp, int th, int tw,
-    int tiles_x, int k_layers, int width, int height) {
+    const T* __restrict__ color, const float* __restrict__ depth,
+    const int* __restrict__ tlist, const int* __restrict__ counts,
+    const float* __restrict__ vol_flt, const float* __restrict__ face_flt,
+    const float* __restrict__ scene, float* __restrict__ out, int n, int s,
+    int hp, int wp, int th, int tw, int tiles_x, int k_layers, int width,
+    int height) {
+  // the grid tiles (hp, wp) exactly (the wrapper checks th % 8 == 0 and
+  // tw % 32 == 0), so every thread reaches the tile vote below
   const int px = blockIdx.x * kBlockX + threadIdx.x;
   const int py = blockIdx.y * kBlockY + threadIdx.y;
+  bool mesh_tile = false;
+  if (kDepth) {
+    const int ty0 = (blockIdx.y * kBlockY / th) * th;
+    const int tx0 = (blockIdx.x * kBlockX / tw) * tw;
+    int m = 0;
+    for (int i = threadIdx.y * kBlockX + threadIdx.x; i < th * tw;
+         i += kBlockX * kBlockY) {
+      const float z = scene[(size_t)(ty0 + i / tw) * wp + tx0 + i % tw];
+      m |= (z > 0.0f && z < 1.0f);
+    }
+    mesh_tile = __syncthreads_or(m) != 0;
+  }
   if (px >= wp || py >= hp) return;
   const int t = (py / th) * tiles_x + px / tw;
   const int count = counts[t];
   const float xg = ((float)px + 0.5f) / width * 2.0f - 1.0f;
   const float yg = -(((float)py + 0.5f) / height * 2.0f - 1.0f);
   const float scene_z = scene[(size_t)py * wp + px];
+  // scene view distance (`UnprojectZ`), rounded as the plain version
+  const float d_scene = __fdiv_rn(
+      kZNear * kZFar,
+      __fadd_rn(__fmul_rn(scene_z, kZNear - kZFar), kZFar));
 
   float lz[kMaxLayers], lr[kMaxLayers], lg[kMaxLayers], lb[kMaxLayers],
       la[kMaxLayers];
@@ -148,16 +208,41 @@ __global__ void tile_composite_kernel(
                                        / safe(dq)), 0.0f, hi);
     const int v0 = (int)floorf(vt);
     const T* img = color + ((size_t)vid * 6 + face) * 4 * s * s;
-    const float wv0 = fmaxf(1.0f - fabsf(vt - (float)v0), 0.0f);
-    float4 c = row_sample(img, s, v0, xg, fq, hi);
+    const float* dimg = kDepth ? depth + ((size_t)vid * 6 + face) * s * s
+                               : nullptr;
+    float wv0 = fmaxf(1.0f - fabsf(vt - (float)v0), 0.0f);
+    RowTaps taps = row_taps(s, v0, xg, fq, hi);
+    float w_sum = 0.0f;
+    if (kDepth && mesh_tile) {
+      const float wd = fmaxf(1.0f - 0.5f * fabsf(d_scene
+                                                 - row_depth(dimg, taps)),
+                             0.0f);
+      wv0 = wv0 * fmaxf(wd, 1e-6f);
+      w_sum = wv0;
+    }
+    float4 c = row_color(img, taps);
     float rr = c.x * wv0, gg = c.y * wv0, bb = c.z * wv0, aa = c.w * wv0;
     if ((float)(v0 + 1) <= hi) {
-      const float wv1 = fmaxf(1.0f - fabsf(vt - (float)(v0 + 1)), 0.0f);
-      c = row_sample(img, s, v0 + 1, xg, fq, hi);
+      float wv1 = fmaxf(1.0f - fabsf(vt - (float)(v0 + 1)), 0.0f);
+      taps = row_taps(s, v0 + 1, xg, fq, hi);
+      if (kDepth && mesh_tile) {
+        const float wd = fmaxf(
+            1.0f - 0.5f * fabsf(d_scene - row_depth(dimg, taps)), 0.0f);
+        wv1 = wv1 * fmaxf(wd, 1e-6f);
+        w_sum += wv1;
+      }
+      c = row_color(img, taps);
       rr += c.x * wv1;
       gg += c.y * wv1;
       bb += c.z * wv1;
       aa += c.w * wv1;
+    }
+    if (kDepth && mesh_tile) {
+      const float inv = 1.0f / fmaxf(w_sum, 1e-20f);
+      rr *= inv;
+      gg *= inv;
+      bb *= inv;
+      aa *= inv;
     }
     aa = fminf(aa, 1.0f);  // `PSCube.hlsl:57` store-if semantics
     if (!(aa > 0.0f)) continue;
@@ -193,42 +278,63 @@ __global__ void tile_composite_kernel(
   out[3 * plane + o] = fminf(aa, 0.9997f);
 }
 
-template <typename T>
-cudaError_t launch(const void* color, const void* tlist, const void* counts,
-                   const void* vol_flt, const void* face_flt,
-                   const void* scene, void* out, int n, int s, int hp, int wp,
-                   int th, int tw, int tiles_x, int k_layers, int width,
-                   int height, cudaStream_t stream) {
+template <typename T, bool kDepth>
+cudaError_t launch(const void* color, const void* depth, const void* tlist,
+                   const void* counts, const void* vol_flt,
+                   const void* face_flt, const void* scene, void* out, int n,
+                   int s, int hp, int wp, int th, int tw, int tiles_x,
+                   int k_layers, int width, int height, cudaStream_t stream) {
   dim3 block(kBlockX, kBlockY);
   dim3 grid((wp + kBlockX - 1) / kBlockX, (hp + kBlockY - 1) / kBlockY);
-  tile_composite_kernel<T><<<grid, block, 0, stream>>>(
-      (const T*)color, (const int*)tlist, (const int*)counts,
-      (const float*)vol_flt, (const float*)face_flt, (const float*)scene,
-      (float*)out, n, s, hp, wp, th, tw, tiles_x, k_layers, width, height);
+  tile_composite_kernel<T, kDepth><<<grid, block, 0, stream>>>(
+      (const T*)color, (const float*)depth, (const int*)tlist,
+      (const int*)counts, (const float*)vol_flt, (const float*)face_flt,
+      (const float*)scene, (float*)out, n, s, hp, wp, th, tw, tiles_x,
+      k_layers, width, height);
   return cudaGetLastError();
+}
+
+template <bool kDepth>
+cudaError_t launch_typed(int is_bf16, const void* color, const void* depth,
+                         const void* tlist, const void* counts,
+                         const void* vol_flt, const void* face_flt,
+                         const void* scene, void* out, int n, int s, int hp,
+                         int wp, int th, int tw, int tiles_x, int k_layers,
+                         int width, int height, cudaStream_t st) {
+  return is_bf16
+      ? launch<__nv_bfloat16, kDepth>(color, depth, tlist, counts, vol_flt,
+                                      face_flt, scene, out, n, s, hp, wp, th,
+                                      tw, tiles_x, k_layers, width, height,
+                                      st)
+      : launch<float, kDepth>(color, depth, tlist, counts, vol_flt,
+                              face_flt, scene, out, n, s, hp, wp, th, tw,
+                              tiles_x, k_layers, width, height, st);
 }
 
 }  // namespace
 
 // color (N, 6, 4, S, S) in the storage type (bf16 when is_bf16, else f32),
-// pre-swapped; tlist (T, N) i32; counts (T,) i32; vol_flt (N, 21) f32;
-// face_flt (N, 6, 9) f32; scene (Hp, Wp) f32 clip depth; out (4, Hp, Wp).
-extern "C" int mv_tile_composite(const void* color, const void* tlist,
-                                 const void* counts, const void* vol_flt,
-                                 const void* face_flt, const void* scene,
-                                 void* out, int n, int s, int hp, int wp,
-                                 int th, int tw, int tiles_x, int k_layers,
-                                 int width, int height, int is_bf16,
-                                 void* stream) {
+// pre-swapped; depth (N, 6, S, S) f32 view distance, swapped like color,
+// or null for the plain warp; tlist (T, N) i32; counts (T,) i32; vol_flt
+// (N, 21) f32; face_flt (N, 6, 9) f32; scene (Hp, Wp) f32 clip depth; out
+// (4, Hp, Wp).
+extern "C" int mv_tile_composite(const void* color, const void* depth,
+                                 const void* tlist, const void* counts,
+                                 const void* vol_flt, const void* face_flt,
+                                 const void* scene, void* out, int n, int s,
+                                 int hp, int wp, int th, int tw, int tiles_x,
+                                 int k_layers, int width, int height,
+                                 int is_bf16, void* stream) {
   if (k_layers < 1 || k_layers > kMaxLayers) return (int)cudaErrorInvalidValue;
   if (th % kBlockY != 0 || tw % kBlockX != 0) return (int)cudaErrorInvalidValue;
+  if (hp % th != 0 || wp % tw != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = is_bf16
-      ? launch<__nv_bfloat16>(color, tlist, counts, vol_flt, face_flt, scene,
-                              out, n, s, hp, wp, th, tw, tiles_x, k_layers,
-                              width, height, st)
-      : launch<float>(color, tlist, counts, vol_flt, face_flt, scene, out, n,
-                      s, hp, wp, th, tw, tiles_x, k_layers, width, height,
-                      st);
+  cudaError_t err = depth
+      ? launch_typed<true>(is_bf16, color, depth, tlist, counts, vol_flt,
+                           face_flt, scene, out, n, s, hp, wp, th, tw,
+                           tiles_x, k_layers, width, height, st)
+      : launch_typed<false>(is_bf16, color, depth, tlist, counts, vol_flt,
+                            face_flt, scene, out, n, s, hp, wp, th, tw,
+                            tiles_x, k_layers, width, height, st);
   return (int)err;
 }

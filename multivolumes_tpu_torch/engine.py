@@ -1,14 +1,17 @@
 """Engine facade: the `MultiRayCaster`-shaped public API.
 
-Counterpart of `multivolumes_tpu/engine.py` without the mesh, over the
-reference's component interfaces (`Content/MultiRayCaster.h:31-50`,
-`LightProbe.h`): the engine owns its scene state and device, bakes the
-light-sweep axis from the light direction, renders frames one at a time
-(`render`) or K at a time (`render_block`), both with TAA by default, and
-takes the reference's setters for volumes, worlds, samples, the light,
-the ambient and the radiance. Each setter rebuilds the state fields that
-depend on what it set. `set_mesh` and `select_raster_preset` wait for the
-mesh pass (ROADMAP.md).
+Counterpart of `multivolumes_tpu/engine.py`, over the reference's
+component interfaces (`Content/MultiRayCaster.h:31-50`,
+`ObjectRenderer.h`, `LightProbe.h`): the engine owns its scene state and
+device (the card unless told otherwise), bakes the light-sweep axis from
+the light direction, renders frames one at a time (`render`) or K at a
+time (`render_block`), both with TAA by default, and takes the
+reference's setters for volumes, worlds, samples, the light, the
+ambient, the radiance and the opaque mesh (`set_mesh`). Each setter
+rebuilds the state fields that depend on what it set; with a mesh, the
+light refreshes the shadow map first. `select_raster_preset` picks the
+mesh raster's tier ladder for the next frame from a host-side camera
+pose.
 """
 
 from __future__ import annotations
@@ -19,12 +22,14 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from multivolumes_tpu.config import RenderConfig
+from multivolumes_tpu_torch.config import RenderConfig
 from multivolumes_tpu_torch.core import camera as camera_lib
 from multivolumes_tpu_torch.core import math3d, sh as sh_lib
 from multivolumes_tpu_torch.render import frame as frame_lib
 from multivolumes_tpu_torch.render import lightsweep
+from multivolumes_tpu_torch.render import mesh as mesh_lib
 from multivolumes_tpu_torch.render.perframe import build_per_object
+from multivolumes_tpu_torch.scene import io_obj
 from multivolumes_tpu_torch.scene import state as state_lib
 from multivolumes_tpu_torch.scene import volume as volume_lib
 
@@ -37,7 +42,12 @@ class MultiRayCaster:
         frame_lib.check_supported(config)
         self.config = config
         self.state = state_lib.create_scene(config, self.device)
+        self._mesh_aabb = None        # world AABB (2, 3) of the mesh, host
         self._set_light_axis()
+
+    @property
+    def has_mesh(self) -> bool:
+        return self.state.mesh_indices.shape[0] > 1
 
     def _set_light_axis(self) -> None:
         """Bake the shear-warp sweep axis (argmax |light dir|) into the
@@ -99,10 +109,12 @@ class MultiRayCaster:
 
     def _refresh_light_cache(self) -> None:
         """Full light-map refresh (all volumes) after a setter that
-        invalidates the per-frame cohort state: density upload, or a
-        light, ambient or SH change. The cached outgoing footprints
-        (`light_sout`) depend on density, light direction and scale, so
-        world moves alone do not need this."""
+        invalidates the per-frame cohort state: density upload, a light,
+        ambient or SH change, or a new mesh shadow map. The cached outgoing
+        footprints (`light_sout`) depend on density, light direction and
+        scale, so world moves alone do not need this. A loaded mesh
+        shadows the maps (whether or not it is shown, as the JAX engine
+        does)."""
         st, cfg = self.state, self.config
         po = build_per_object(st.volume_worlds, torch.eye(
             4, dtype=torch.float32, device=self.device))
@@ -110,7 +122,10 @@ class MultiRayCaster:
             st.rho_light, st.ao_static, st.grad_dir, st.vol_tex_ids, po,
             st.light_pos, st.light_color, st.ambient, st.sh_coeffs,
             cfg.max_light_samples, cfg.light_axis,
-            has_light_probe=cfg.has_light_probe)
+            has_light_probe=cfg.has_light_probe,
+            shadow_map=st.mesh_shadow_map if self.has_mesh else None,
+            shadow_vp=mesh_lib.shadow_view_proj(st) if self.has_mesh
+            else None)
         self.state = dataclasses.replace(
             st, light_maps=maps,
             light_sweep=state_lib.to_light_sweep(maps, st.light_sweep.dtype),
@@ -156,7 +171,17 @@ class MultiRayCaster:
             self.state, light_pos=self._f32([*pos, 1.0]),
             light_color=self._f32([*color, intensity]))
         self._set_light_axis()
+        self._refresh_shadow_map()
         self._refresh_light_cache()
+
+    def _refresh_shadow_map(self) -> None:
+        """Re-rasterize the cached light-view shadow map (the reference
+        renders it every frame; mesh, light and world are static between
+        setter calls here)."""
+        if self.has_mesh:
+            self.state = dataclasses.replace(
+                self.state, mesh_shadow_map=mesh_lib.render_shadow_map(
+                    self.state, self.config))
 
     def set_ambient(self, color, intensity: float) -> None:
         self.state = dataclasses.replace(
@@ -178,14 +203,57 @@ class MultiRayCaster:
         self._refresh_light_cache()
 
     def set_mesh(self, path: str) -> None:
-        raise NotImplementedError(
-            "not ported to multivolumes_tpu_torch yet: the mesh pass "
-            "(set_mesh; see ROADMAP.md)")
+        """OBJ mesh + world placement (`ObjectRenderer::Init`): loads the
+        file, places it by `config.mesh_pos_scale`, derives the far tier
+        ladder on the host, shows it, and refreshes the shadow map and
+        then the light maps."""
+        mesh = io_obj.load_obj(path)
+        mx, my, mz, ms = self.config.mesh_pos_scale
+        self.state = dataclasses.replace(
+            self.state,
+            mesh_verts=self._f32(mesh.vertices),
+            mesh_indices=torch.from_numpy(
+                np.asarray(mesh.indices, np.int64)).to(self.device),
+            mesh_world=state_lib.mesh_world_matrix(self.config, self.device),
+            scene_size=self._f32(mesh.scene_size * ms))
+        # host-side copies for the per-frame raster-preset pick: the world
+        # AABB and the mesh's own far ladder
+        verts_np = np.asarray(mesh.vertices, np.float32)[:, :3] * ms \
+            + np.asarray([mx, my, mz], np.float32)
+        self._mesh_aabb = np.stack([verts_np.min(0), verts_np.max(0)])
+        ladder = mesh_lib.derive_far_tiers(
+            mesh.vertices, mesh.indices,
+            self.state.mesh_world.cpu().numpy(), self.config.width,
+            self.config.height, self.config.raster_far_bound)
+        far_tiers, far_small = ladder if ladder else (None, None)
+        self.config = self.config.with_(show_mesh=True,
+                                        raster_far_tiers=far_tiers,
+                                        raster_far_small=far_small)
+        self._refresh_shadow_map()
+        self._refresh_light_cache()
 
     def select_raster_preset(self, eye, focus=(0.0, 0.0, 0.0)) -> str:
-        raise NotImplementedError(
-            "not ported to multivolumes_tpu_torch yet: the mesh raster "
-            "presets (see ROADMAP.md)")
+        """Pick the mesh raster's tier ladder for the next frame from a
+        host-side camera pose (floats or numpy, never a device tensor):
+        "far" once the mesh's projected bbox is within raster_far_bound,
+        back to "near" above 1.05 times it (the hysteresis keeps an
+        orbiting camera from flipping). Returns the preset."""
+        cfg = self.config
+        if (self._mesh_aabb is None or not cfg.show_mesh
+                or not cfg.raster_far_tiers):
+            return cfg.raster_preset
+        e = mesh_lib.projected_size_px(self._mesh_aabb, eye, focus,
+                                       cfg.width, cfg.height)
+        bound = float(cfg.raster_far_bound)
+        preset = cfg.raster_preset
+        if preset == "far":
+            if e > bound * 1.05:
+                preset = "near"
+        elif e <= bound:
+            preset = "far"
+        if preset != cfg.raster_preset:
+            self.config = cfg.with_(raster_preset=preset)
+        return preset
 
     # --- frame loop -------------------------------------------------------
 

@@ -39,9 +39,11 @@ _I = ctypes.c_int
 SIGNATURES = {
     "mv_sweep_march": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _P],
-    "mv_tile_composite": [_P, _P, _P, _P, _P, _P, _P,
+    "mv_tile_composite": [_P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "mv_light_self_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "mv_light_self_scan_sm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                              _P],
     "mv_light_advect_mul": [_P, _P, _P, _P, _P, _I, _I, _P],
     "mv_taa_resolve": [_P, _P, _P, _P, _P, _I, _I, _P],
 }

@@ -1,8 +1,9 @@
 """Screen-tile OIT composite (B2): kernel wrapper and plain version.
 
 Hand kernel: `csrc/composite.cu`, replacing
-`multivolumes_tpu/ops/pallas/composite_kernel.py::tile_composite_pallas`
-without the CubeCast depth weights (those need a scene mesh).
+`multivolumes_tpu/ops/pallas/composite_kernel.py::tile_composite_pallas`,
+with and without the CubeCast depth weights (`depth_sel`, the frames with
+the opaque mesh; launched as `composite_depth`).
 
 The JAX package has no same-signature twin of this kernel, so the plain
 version below is written from the kernel's semantics: per pixel, for each
@@ -11,6 +12,17 @@ against the scene depth, the exact Catmull-Smith two-pass warp of the exit
 face (rows floor(vt) and floor(vt) + 1, each tapped at its own isoline
 crossing cu(row, x)), a nearest-K insert that keeps the earlier-listed
 volume on equal depth, then the front-to-back under-blend.
+
+With `depth_sel` (N, 6, S, S), the cube depth in view distance, tiles
+that hold a mesh pixel (scene clip z in (0, 1) anywhere in the th x tw
+tile) weight the two rows of the warp by depth (`PSCube.hlsli:51-108`):
+each row's cube depth is u-interpolated with the colour's tent weights,
+the row weight becomes wv * max(max(1 - 0.5 |d_scene - d_row|, 0), 1e-6)
+with d_scene the pixel's scene depth in view distance, and the four
+channels are normalised by the weight sum (floored at 1e-20). Other
+tiles take the plain warp: the gate is part of the result, because the
+normalisation changes the colour at a face's edge, where the tent
+weights sum to less than 1.
 
 Operands (from `render/tilecast._tile_prep`): color (N, 6, 4, S, S)
 pre-swapped faces; scene (Hp, Wp) padded clip depth (0 in the pad);
@@ -25,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from multivolumes_tpu_torch import ops
+from multivolumes_tpu_torch.config import SharedConsts
 
 FLT_MAX = 3.402823466e38
 _EPS = 1e-12
@@ -46,9 +59,18 @@ def _slab(o, d):
     return torch.minimum(t1, t2), torch.maximum(t1, t2)
 
 
+def mesh_tiles(scene, th: int, tw: int):
+    """(Hp, Wp) padded scene clip depth -> (Hp / th, Wp / tw) bool: the
+    tile holds a mesh pixel (0 < z < 1; the pad is 0, empty background
+    1)."""
+    hp, wp = scene.shape
+    m = (scene > 0.0) & (scene < 1.0)
+    return m.reshape(hp // th, th, wp // tw, tw).any(dim=3).any(dim=1)
+
+
 def tile_composite_plain(color, scene, tlist, counts, vol_flt, face_flt,
                          th: int, tw: int, tiles_x: int, k_layers: int,
-                         width: int, height: int):
+                         width: int, height: int, depth_sel=None):
     """Plain version of B2 (see the module docstring)."""
     hp, wp = scene.shape
     s = color.shape[-1]
@@ -61,6 +83,11 @@ def tile_composite_plain(color, scene, tlist, counts, vol_flt, face_flt,
     tile = (rows // th)[:, None] * tiles_x + (cols // tw)[None, :]
     cnt = counts.long()[tile]
     img = color.float()
+    if depth_sel is not None:
+        on_mesh = mesh_tiles(scene, th, tw).repeat_interleave(
+            th, 0).repeat_interleave(tw, 1)
+        zn, zf = SharedConsts.Z_NEAR, SharedConsts.Z_FAR
+        d_scene = (zn * zf) / (scene * (zn - zf) + zf)
 
     lz = torch.full((k_layers, hp, wp), FLT_MAX, device=dev)
     lc = torch.zeros((4, k_layers, hp, wp), device=dev)
@@ -101,6 +128,8 @@ def tile_composite_plain(color, scene, tlist, counts, vol_flt, face_flt,
         vt = torch.minimum(vt, hi)
         v0 = torch.floor(vt)
         rgba = torch.zeros((4, hp, wp), device=dev)
+        rgba_d = torch.zeros((4, hp, wp), device=dev)
+        w_sum = torch.zeros((hp, wp), device=dev)
         for v in (v0, v0 + 1.0):
             wv = torch.clamp(1.0 - (vt - v).abs(), min=0.0)
             wv = torch.where(v <= hi, wv, 0.0)
@@ -115,12 +144,24 @@ def tile_composite_plain(color, scene, tlist, counts, vol_flt, face_flt,
             u0 = torch.floor(cu)
             vi = torch.clamp(v.long(), 0, s - 1)
             row = torch.zeros((4, hp, wp), device=dev)
+            d_row = torch.zeros((hp, wp), device=dev)
             for u in (u0, u0 + 1.0):
                 wu = torch.clamp(1.0 - (cu - u).abs(), min=0.0)
                 ui = torch.clamp(u.long(), 0, s - 1)
                 tap = img[vid, face, :, vi, ui]            # (Hp, Wp, 4)
                 row += tap.movedim(-1, 0) * wu
+                if depth_sel is not None:
+                    d_row += depth_sel[vid, face, vi, ui] * wu
             rgba += row * wv
+            if depth_sel is not None:
+                wd = torch.clamp(1.0 - 0.5 * (d_scene - d_row).abs(),
+                                 min=0.0)
+                wvd = wv * torch.clamp(wd, min=1e-6)
+                rgba_d += row * wvd
+                w_sum += wvd
+        if depth_sel is not None:
+            rgba = torch.where(on_mesh, rgba_d * (
+                1.0 / torch.clamp(w_sum, min=1e-20)), rgba)
         aa = torch.clamp(rgba[3], max=1.0)
         store = (aa > 0.0) & valid
         zn = torch.where(store, exit_z, FLT_MAX)
@@ -142,14 +183,15 @@ def tile_composite_plain(color, scene, tlist, counts, vol_flt, face_flt,
 
 def tile_composite(color, scene, tlist, counts, vol_flt, face_flt, th: int,
                    tw: int, tiles_x: int, k_layers: int, width: int,
-                   height: int, impl: str | None = None):
-    """B2 wrapper -> (4, Hp, Wp) premultiplied RGBA."""
+                   height: int, depth_sel=None, impl: str | None = None):
+    """B2 wrapper -> (4, Hp, Wp) premultiplied RGBA; with `depth_sel` the
+    depth-weighted variant (see the module docstring)."""
     if not 1 <= k_layers <= MAX_LAYERS:
         raise ValueError(f"k_layers must be in [1, {MAX_LAYERS}]")
     if not ops.use_kernel(impl, color):
         return tile_composite_plain(color, scene, tlist, counts, vol_flt,
                                     face_flt, th, tw, tiles_x, k_layers,
-                                    width, height)
+                                    width, height, depth_sel=depth_sel)
     from multivolumes_tpu_torch.ops import build
 
     n, s = color.shape[0], color.shape[-1]
@@ -160,6 +202,12 @@ def tile_composite(color, scene, tlist, counts, vol_flt, face_flt, th: int,
     if hp % th or wp % tw or tlist.shape[0] != (hp // th) * (wp // tw):
         raise ValueError("screen must tile exactly into the tile lists")
     ops.check_cuda(color, "color", (torch.bfloat16, torch.float32))
+    if depth_sel is not None:
+        if depth_sel.shape != (n, 6, s, s):
+            raise ValueError(f"depth_sel {tuple(depth_sel.shape)} does not "
+                             f"match the faces {tuple(color.shape)}")
+        depth_sel = depth_sel.float().contiguous()
+        ops.check_cuda(depth_sel, "depth_sel")
     tlist, counts = tlist.int().contiguous(), counts.int().contiguous()
     vol_flt, face_flt = vol_flt.float().contiguous(), \
         face_flt.float().contiguous()
@@ -170,10 +218,11 @@ def tile_composite(color, scene, tlist, counts, vol_flt, face_flt, th: int,
         ops.check_cuda(t, name)
     out = torch.empty((4, hp, wp), dtype=torch.float32, device=color.device)
     build.launch(
-        "mv_tile_composite", color.data_ptr(), tlist.data_ptr(),
+        "mv_tile_composite", color.data_ptr(),
+        0 if depth_sel is None else depth_sel.data_ptr(), tlist.data_ptr(),
         counts.data_ptr(), vol_flt.data_ptr(), face_flt.data_ptr(),
         scene.data_ptr(), out.data_ptr(), n, s, hp, wp, th, tw, tiles_x,
         k_layers, width, height, int(color.dtype == torch.bfloat16),
         torch.cuda.current_stream(color.device).cuda_stream)
-    ops.count_launch("composite")
+    ops.count_launch("composite" if depth_sel is None else "composite_depth")
     return out

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from multivolumes_tpu.config import SharedConsts
+from multivolumes_tpu_torch.config import SharedConsts
 from multivolumes_tpu_torch import ops
 
 ABSORPTION = SharedConsts.ABSORPTION

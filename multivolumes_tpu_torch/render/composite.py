@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from multivolumes_tpu.config import SharedConsts
+from multivolumes_tpu_torch.config import SharedConsts
 
 
 def unproject_z(depth):

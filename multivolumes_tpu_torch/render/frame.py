@@ -1,12 +1,17 @@
 """The frame: `(state, camera) -> (image, hdr, state)`.
 
 Counterpart of `multivolumes_tpu/render/frame.py:render_frame` and
-`render_frames` for the main path without a mesh, in the order of its
-passes:
+`render_frames` for one device, in the order of its passes:
 
-    prep (per-object matrices, cull/LOD) -> light (cohort refresh, B3/B4)
+    prep (per-object matrices, cull/LOD) -> mesh (raster, deferred shade;
+    with show_mesh and a loaded mesh) -> light (cohort refresh, B3/B4)
     -> sweep (LOD cube-map march, B1) -> sky -> composite (tile OIT, B2)
     -> tail (background blend) -> taa (TAA resolve, B5) -> tone map
+
+With the mesh, its depth bounds the sweep's rays and weights the
+composite's taps (B2's depth variant), its cached shadow map shades the
+light cohort (B3's shadow-map variant), it is the opaque background of
+the volumes, and its velocity reprojects the TAA history.
 
 PyTorch runs eagerly, so there is no jit boundary; the frame reads no
 device value on the host except where the composite prep checks the swap
@@ -20,10 +25,11 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from multivolumes_tpu.config import RenderConfig
+from multivolumes_tpu_torch.config import RenderConfig
 from multivolumes_tpu_torch.core.camera import Camera
 from multivolumes_tpu_torch.render import cull as cull_lib
 from multivolumes_tpu_torch.render import lightsweep, postprocess
+from multivolumes_tpu_torch.render import mesh as mesh_lib
 from multivolumes_tpu_torch.render import taa as taa_lib
 from multivolumes_tpu_torch.render import tilecast
 from multivolumes_tpu_torch.render import sweep as sweep_lib
@@ -38,13 +44,10 @@ class FrameOutput(NamedTuple):
     state: SceneState
 
 
-def check_supported(config: RenderConfig, mesh=None,
-                    show_mesh: Optional[bool] = None) -> None:
+def check_supported(config: RenderConfig, mesh=None) -> None:
     """Raise for the settings whose passes are not ported yet (each is a
     queue entry in ROADMAP.md)."""
     missing = []
-    if show_mesh if show_mesh is not None else config.show_mesh:
-        missing.append("the mesh pass")
     if mesh is not None:
         missing.append("multi-device sharding")
     if config.march_mode != "sweep" or config.light_mode != "sweep":
@@ -74,9 +77,11 @@ def render_frame(state: SceneState, camera: Camera, config: RenderConfig,
     resolve. `impl` forces the kernels' side (see `ops`); `timer`, if
     given, is called with each pass name as the pass starts and with None
     at the end."""
-    check_supported(config, mesh, show_mesh)
+    check_supported(config, mesh)
     width, height = config.width, config.height
     mark = timer if timer is not None else (lambda name: None)
+    show_mesh = config.show_mesh if show_mesh is None else show_mesh
+    has_mesh = bool(show_mesh and state.mesh_indices.shape[0] > 1)
 
     mark("prep")
     view_proj = camera.view_proj
@@ -88,6 +93,13 @@ def render_frame(state: SceneState, camera: Camera, config: RenderConfig,
         per_object, eye, [width, height], config.max_ray_samples,
         config.cube_map_size, config.num_cube_mips,
         adaptive=config.adaptive_raymarch)
+
+    # --- opaque mesh: raster + deferred shade (shadow map cached) -------
+    mesh_out = depth_map = None
+    if has_mesh:
+        mark("mesh")
+        mesh_out = mesh_lib.render_mesh(state, camera, config)
+        depth_map = mesh_out.depth
 
     # --- light: refresh one cohort round-robin (config.light_refresh) ----
     mark("light")
@@ -101,7 +113,9 @@ def render_frame(state: SceneState, camera: Camera, config: RenderConfig,
         per_object, state.light_pos, state.light_color, state.ambient,
         state.sh_coeffs, config.max_light_samples, axis,
         has_light_probe=config.has_light_probe, sub_ids=ids,
-        sout_cache=state.light_sout, impl=impl)
+        sout_cache=state.light_sout, impl=impl,
+        shadow_map=mesh_out.shadow if has_mesh else None,
+        shadow_vp=mesh_out.shadow_vp if has_mesh else None)
     state.light_maps[ids] = maps_c.to(state.light_maps.dtype)
     state.light_sweep[ids] = to_light_sweep(maps_c, state.light_sweep.dtype)
 
@@ -113,7 +127,7 @@ def render_frame(state: SceneState, camera: Camera, config: RenderConfig,
         state.volumes_sweep, state.vol_tex_ids, state.light_sweep,
         per_object, lod_cull, eye, config.cube_map_size, swap_basis,
         bucket_caps=config.lod_bucket_caps, vol_zmax=state.vol_zmax,
-        impl=impl)
+        impl=impl, depth_map=depth_map)
     cull_for_composite = cull._replace(mip_level=swept.mips,
                                        use_cube_map=cull.visible)
 
@@ -125,7 +139,7 @@ def render_frame(state: SceneState, camera: Camera, config: RenderConfig,
 
     # --- OIT composite over the background ------------------------------
     mark("composite")
-    cs = config.composite_scale
+    cs = config.composite_scale if not has_mesh else 1
     if cs > 1 and width % cs == 0 and height % cs == 0:
         cw, ch = width // cs, height // cs
     else:
@@ -133,7 +147,8 @@ def render_frame(state: SceneState, camera: Camera, config: RenderConfig,
     vr, vg, vb, va = tilecast.composite_oit_tile(
         swept.cube_maps, per_object, cull_for_composite, eye,
         screen_to_world, cw, ch, num_layers=config.oit_layers,
-        order=swept.order, swap_sorted=swept.swap, impl=impl)
+        order=swept.order, swap_sorted=swept.swap, depth_map=depth_map,
+        impl=impl)
 
     mark("tail")
     if (cw, ch) != (width, height):
@@ -141,15 +156,33 @@ def render_frame(state: SceneState, camera: Camera, config: RenderConfig,
         mv = postprocess._upsample_matrix(height, ch, dev)
         vr, vg, vb, va = (mv @ x @ mu.T for x in (vr, vg, vb, va))
     t = 1.0 - va
-    # no mesh: the background is the sky, of alpha 0, so sc_a = va
-    sc = (vr + t * bg_r, vg + t * bg_g, vb + t * bg_b, va)
+    if has_mesh:
+        # the mesh is the opaque background (alpha 1), the sky elsewhere
+        valid = mesh_out.valid
+        bg_r, bg_g, bg_b = (torch.where(valid, c, b) for c, b in zip(
+            mesh_out.color, (bg_r, bg_g, bg_b)))
+        sc_a = va + t * valid.float()
+    else:
+        sc_a = va  # the sky has alpha 0
+    sc = (vr + t * bg_r, vg + t * bg_g, vb + t * bg_b, sc_a)
 
-    # --- TAA (no mesh: nothing writes velocity) + tone map ---------------
+    # --- TAA (the mesh is the one velocity writer) + tone map ------------
     image = None
     if use_taa:
         mark("taa")
-        taa_out = taa_lib.temporal_aa(sc, state.taa_history, None,
-                                      tonemap_out=planar, impl=impl)
+        # the windowed reprojection only under the far preset, whose host
+        # pick keeps the mesh inside raster_far_bound, and only when the
+        # window covers the pick's 1.05x hysteresis ceiling plus the
+        # velocity dilation; else the whole screen
+        reproj_ok = (mesh_lib.far_preset(config)
+                     and config.taa_reproj_window
+                     >= mesh_lib.far_ceiling(config) + 16)
+        taa_out = taa_lib.temporal_aa(
+            sc, state.taa_history,
+            mesh_out.velocity if has_mesh else None,
+            tonemap_out=planar, impl=impl,
+            reproj_center=mesh_out.screen_center if has_mesh else None,
+            reproj_window=config.taa_reproj_window if reproj_ok else 0)
         if planar:
             (rr, rg, rb), new_history, image = taa_out
         else:
@@ -164,21 +197,24 @@ def render_frame(state: SceneState, camera: Camera, config: RenderConfig,
     hdr = torch.stack(sc, dim=ax)
     mark(None)
 
-    new_state = dataclasses.replace(state, frame_idx=state.frame_idx + 1,
-                                    light_sout=light_sout,
-                                    taa_history=new_history)
+    new_state = dataclasses.replace(
+        state, frame_idx=state.frame_idx + 1, light_sout=light_sout,
+        taa_history=new_history,
+        mesh_prev_wvp=mesh_out.new_prev_wvp if has_mesh
+        else state.mesh_prev_wvp)
     return FrameOutput(image=image, hdr=hdr, state=new_state)
 
 
 def render_frames(state: SceneState, cameras: Sequence[Camera],
-                  config: RenderConfig, use_taa: bool = True):
+                  config: RenderConfig, use_taa: bool = True,
+                  show_mesh: Optional[bool] = None):
     """Render K frames, one per camera, carrying the state from each to
     the next exactly as K `render_frame` calls do. Returns ((K, 3, H, W)
     planar display images, the advanced state)."""
     images = []
     for camera in cameras:
-        out = render_frame(state, camera, config, use_taa=use_taa,
-                           planar=True)
+        out = render_frame(state, camera, config, show_mesh=show_mesh,
+                           use_taa=use_taa, planar=True)
         images.append(out.image)
         state = out.state
     return torch.stack(images, 0), state

@@ -1,18 +1,22 @@
 """Sweep-based light maps: shear-warp transmittance propagation.
 
-Counterpart of `multivolumes_tpu/render/lightsweep.py` for the no-mesh
-frame: the sweep axis is static (the engine derives it from the light
-direction, `engine.light_axis`), there is no shadow map (has_sm=False),
-and the two L-step scans run through the B3/B4 kernel wrappers in
-`ops/lightsweep.py`. See the JAX module for the method and its
-documented deviations from the reference's per-voxel light march.
+Counterpart of `multivolumes_tpu/render/lightsweep.py`: the sweep axis
+is static (the engine derives it from the light direction,
+`light_axis`), and the two L-step scans run through the B3/B4 kernel
+wrappers in `ops/lightsweep.py`. With the opaque mesh, its shadow map is
+sampled once per ray on the global lateral grid (the light view is
+orthographic, so a ray's shadow-map texel is constant along it; a direct
+4-tap bilinear read), resampled to each cohort volume's entry plane, and
+compared per slice inside B3's shadow-map variant. See the JAX module for
+the method and its documented deviations from the reference's per-voxel
+light march.
 """
 
 from __future__ import annotations
 
 import torch
 
-from multivolumes_tpu.config import SharedConsts
+from multivolumes_tpu_torch.config import SharedConsts
 from multivolumes_tpu_torch.core import sh as sh_lib
 from multivolumes_tpu_torch.ops import lightsweep as light_ops
 from multivolumes_tpu_torch.ops.trilinear import indexed_trilinear_soa
@@ -66,11 +70,15 @@ def light_transmittance(
     sub_ids=None,     # (C,) volume indices refreshed (None = all N)
     sout_cache=None,  # (N, L, L) cached outgoing lateral transmittance
     impl: str | None = None,
+    shadow_map=None,  # (Sm, Sm) the mesh's light-view clip depth, or None
+    shadow_vp=None,   # (4, 4) its view-proj
+    shadow_bias: float = 0.0027,
 ):
     """Per-volume transmittance fields toward the light with inter-volume
     occlusion chained through a shared lateral map -> ((C, L, L, L),
     (N, L, L) outgoing footprints). `sout_cache`, when given, is updated
-    in place at `sub_ids` and returned."""
+    in place at `sub_ids` and returned. With `shadow_map`, each voxel is
+    also lit only in front of the mesh (a soft compare one slice deep)."""
     n = per_object.world.shape[0]
     c, l = rho_light.shape[0], rho_light.shape[1]
     dev = rho_light.device
@@ -162,9 +170,17 @@ def light_transmittance(
     wv_all = torch.clamp(1.0 - ((gu_rows - ov_o[:, None, None])
                                 / sv[:, None, None] - gu_cols).abs(), min=0.0)
 
-    # self sweep (B3): volume-only transmittance per slice + footprint
+    sm_args = {}
+    if shadow_map is not None:
+        sm_args = _shadow_entry(
+            shadow_map, shadow_vp, shadow_bias, ld, axis, g, lo_u, lo_v,
+            span_u, span_v, mv_in, mu_in, (w_in, sgn, scales),
+            sub, l)
+
+    # self sweep (B3; its shadow-map variant with a mesh): volume-only
+    # transmittance per slice + footprint
     here, s_out_c = light_ops.light_self_scan(
-        rho_o, du[sub], dv[sub], f_corr[sub], impl=impl)
+        rho_o, du[sub], dv[sub], f_corr[sub], impl=impl, **sm_args)
 
     if sout_cache is not None:
         sout_cache[sub] = s_out_c
@@ -200,6 +216,60 @@ def light_transmittance(
     elif axis == 1:
         t_fields = t_fields.permute(0, 2, 1, 3)
     return t_fields, s_out_all
+
+
+def _shadow_entry(shadow_map, shadow_vp, shadow_bias, light_dir_world,
+                  axis: int, g: int, lo_u, lo_v, span_u, span_v, mv_in,
+                  mu_in, geom, sub, l: int) -> dict:
+    """The shadow-map operands of B3's variant for the cohort: sm_vol and
+    z_entry (C, L, L) on each volume's entry plane, dz_slice and soft
+    (C,). The map is read once per ray of the global (G, G) lateral grid
+    on the w = 0 reference plane, bilinearly with clamped taps (the JAX
+    package's non-quad branch)."""
+    w_in, sgn, scales = geom
+    dev = shadow_map.device
+    ar = (torch.arange(g, dtype=torch.float32, device=dev) + 0.5) / g
+    u_w = lo_u + ar[None, :] * span_u
+    v_w = lo_v + ar[:, None] * span_v
+    zero = torch.zeros_like(u_w + v_w)
+    if axis == 0:      # lateral (v=y, u=z), reference plane x = 0
+        p0 = (zero, v_w.expand_as(zero), u_w.expand_as(zero))
+    elif axis == 1:    # lateral (v=z, u=x), plane y = 0
+        p0 = (u_w.expand_as(zero), zero, v_w.expand_as(zero))
+    else:              # lateral (v=y, u=x), plane z = 0
+        p0 = (u_w.expand_as(zero), v_w.expand_as(zero), zero)
+    m = shadow_vp
+    su_ = p0[0] * m[0, 0] + p0[1] * m[1, 0] + p0[2] * m[2, 0] + m[3, 0]
+    sv_ = p0[0] * m[0, 1] + p0[1] * m[1, 1] + p0[2] * m[2, 1] + m[3, 1]
+    z0g = p0[0] * m[0, 2] + p0[1] * m[1, 2] + p0[2] * m[2, 2] + m[3, 2]
+    hs, ws = shadow_map.shape
+    xs_ = (su_ * 0.5 + 0.5) * ws - 0.5
+    ys_ = (1.0 - (sv_ * 0.5 + 0.5)) * hs - 0.5
+    x0f, y0f = torch.floor(xs_), torch.floor(ys_)
+
+    def cidx(vv, nn):
+        return torch.clamp(torch.clamp(vv, -1.0, float(nn)).long(), 0,
+                           nn - 1)
+
+    fx, fy = xs_ - x0f, ys_ - y0f
+    xa, xb = cidx(x0f, ws), cidx(x0f + 1, ws)
+    ya, yb = cidx(y0f, hs), cidx(y0f + 1, hs)
+    sm0 = shadow_map[ya, xa] * (1 - fx) + shadow_map[ya, xb] * fx
+    sm1 = shadow_map[yb, xa] * (1 - fx) + shadow_map[yb, xb] * fx
+    sm_g = sm0 * (1 - fy) + sm1 * fy + shadow_bias             # (G, G)
+    # light-space z advance per unit world w along a ray
+    d = -light_dir_world
+    dz_dp = d[0] * m[0, 2] + d[1] * m[1, 2] + d[2] * m[2, 2]
+    dir_w = d[axis]
+    dzdw = dz_dp / torch.where(dir_w.abs() > 1e-6, dir_w,
+                               torch.where(dir_w >= 0, 1e-6, -1e-6))
+    sm_vol = torch.einsum("cvg,gh,cuh->cvu", mv_in, sm_g, mu_in)
+    z_vol = torch.einsum("cvg,gh,cuh->cvu", mv_in, z0g, mu_in)
+    dz_slice = (dzdw * sgn * (2.0 * scales / l))[sub]
+    return dict(sm_vol=sm_vol,
+                z_entry=z_vol + (dzdw * w_in)[sub][:, None, None],
+                dz_slice=dz_slice,
+                soft=torch.clamp(dz_slice.abs(), min=1e-6))
 
 
 def precompute_static(volumes, light_grid_size: int,
@@ -275,16 +345,19 @@ def ray_march_light_sweep_update(
     per_object: PerObject, light_pos, light_color, ambient, sh_coeffs,
     max_light_samples: int, axis: int, has_light_probe: bool = True,
     sub_ids=None, sout_cache=None, impl: str | None = None,
+    shadow_map=None, shadow_vp=None,
 ):
     """Refresh the light maps of a volume cohort (all volumes when
-    `sub_ids` is None) -> (maps (C, 3, L, L, L), sout (N, L, L))."""
+    `sub_ids` is None) -> (maps (C, 3, L, L, L), sout (N, L, L)); with
+    the mesh's `shadow_map` and `shadow_vp` the maps take its shadow."""
     step_scale = MAX_DIST / float(max_light_samples)
     tex_sub = vol_tex_ids if sub_ids is None else vol_tex_ids[sub_ids]
     rho = rho_light_src[tex_sub]
     light_dir = light_pos[:3] / torch.linalg.norm(light_pos[:3])
     shadow, sout = light_transmittance(
         rho, per_object, light_dir, step_scale, axis,
-        sub_ids=sub_ids, sout_cache=sout_cache, impl=impl)
+        sub_ids=sub_ids, sout_cache=sout_cache, impl=impl,
+        shadow_map=shadow_map, shadow_vp=shadow_vp)
     maps = _shade_light_fields(shadow, rho, tex_sub, ao_src, grad_dir_src,
                                sh_coeffs, ambient, light_color,
                                has_light_probe)

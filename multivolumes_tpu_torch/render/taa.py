@@ -8,10 +8,12 @@ frame has a velocity field.
 
 Without a mesh nothing writes velocity (the reference's volumes never
 do, `PSBasePass.hlsl:107-109`), so the history is used as it is and the
-history blur is zero. With a velocity field the whole screen is
+history blur is zero. With a velocity field (the mesh) the history is
 reprojected by an ordinary bilinear gather (the JAX package's quad-row
-table, `_bilinear_rows16`, is a TPU gather workaround). The windowed
-reprojection around the mesh's screen centre comes with the mesh pass.
+table, `_bilinear_rows16`, is a TPU gather workaround): over the whole
+screen, or, given the mesh's screen centre and a window, only in that
+window (velocity is zero outside it), the window cut and pasted back by
+index arithmetic on the device.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from multivolumes_tpu_torch.ops import taa as taa_ops
+from multivolumes_tpu_torch.render.mesh import window_index
 from multivolumes_tpu_torch.ops.taa import (  # noqa: F401  (the module API)
     OFFSETS, itm, rgb_to_ycocg, tm, ycocg_to_rgb)
 
@@ -72,22 +75,45 @@ def reproject(history, velocity):
     return hist, blur
 
 
+def reproject_window(history, velocity, center, win: int):
+    """History reprojection inside the `win`-square window centred on
+    `center` (device scalars (cx, cy), px); the identity elsewhere. The
+    velocity dilation sees only the window (edge-clamped there), as the
+    JAX package's windowed path does. -> (history, blur)."""
+    _, h, w = history.shape
+    dev = history.device
+    xs = window_index(center[0], win, w, dev)
+    ys = window_index(center[1], win, h, dev)
+    yi, xi = ys[:, None], xs[None, :]
+    mvx, mvy = velocity_max(velocity[0][yi, xi], velocity[1][yi, xi])
+    ub = (xs.float() + 0.5)[None, :] / w - mvx
+    vb = (ys.float() + 0.5)[:, None] / h - mvy
+    hist = history.clone()
+    hist[:, yi, xi] = torch.stack([_sample_bilinear_ch(history[c], ub, vb)
+                                   for c in range(4)], 0)
+    blur = torch.zeros((h, w), dtype=torch.float32, device=dev)
+    blur[yi, xi] = mvx.abs() * (4.0 * w) + mvy.abs() * (4.0 * h)
+    return hist, blur
+
+
 def temporal_aa(current, history, velocity, tonemap_out: bool = False,
                 impl: str | None = None, reproj_center=None,
                 reproj_window: int = 0):
     """current: (r, g, b, a) fields ((H, W) each; a < 1 marks
     transparency); history: (4, H, W) previous output + metadata;
-    velocity: (vx, vy) fields, or None when nothing writes velocity.
-    Returns ((r, g, b) resolved, new history (4, H, W)), and the display
-    image (3, H, W) as a third element when `tonemap_out`."""
-    if reproj_center is not None or reproj_window:
-        raise NotImplementedError(
-            "not ported to multivolumes_tpu_torch yet: the windowed TAA "
-            "reprojection (it needs the mesh pass; see ROADMAP.md)")
+    velocity: (vx, vy) fields, or None when nothing writes velocity;
+    reproj_center (cx, cy) and 0 < reproj_window < min(H, W) restrict the
+    reprojection to that window. Returns ((r, g, b) resolved, new history
+    (4, H, W)), and the display image (3, H, W) as a third element when
+    `tonemap_out`."""
     cur = torch.stack([x.float() for x in current], 0)
+    h, w = cur.shape[1:]
     if velocity is None:
         hist = history
         blur = torch.zeros_like(cur[0])
+    elif reproj_center is not None and 0 < reproj_window < min(h, w):
+        hist, blur = reproject_window(history, velocity, reproj_center,
+                                      reproj_window)
     else:
         hist, blur = reproject(history, velocity)
     out = taa_ops.taa_resolve(cur, hist, blur, tonemap=tonemap_out,

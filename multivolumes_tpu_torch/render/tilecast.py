@@ -1,9 +1,11 @@
 """Per-frame geometry for the screen-tile OIT composite (kernel B2).
 
 Counterpart of `multivolumes_tpu/render/tilecast.py` (`tile_dims`,
-`_tile_prep`, `composite_oit_tile`) for a scene without a mesh: the
-per-volume homographies, the Catmull-Smith orientation per face, and the
-per-tile volume lists, handed to `ops/composite.py`.
+`_tile_prep`, `composite_oit_tile`): the per-volume homographies, the
+Catmull-Smith orientation per face, the per-tile volume lists and the
+padded scene depth, handed to `ops/composite.py`. With a scene depth map
+(the opaque mesh) the cube depth planes ride along as `depth_sel`, and
+the composite weights its taps by depth (kernel B2's depth variant).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 from multivolumes_tpu_torch.core import math3d
 from multivolumes_tpu_torch.ops.composite import tile_composite
 from multivolumes_tpu_torch.render import warp as warp_lib
+from multivolumes_tpu_torch.render.composite import unproject_z
 from multivolumes_tpu_torch.render.cull import CullResult
 from multivolumes_tpu_torch.render.perframe import PerObject
 from multivolumes_tpu_torch.render.raymarch import CubeMaps
@@ -32,9 +35,15 @@ def tile_dims(width: int, height: int):
 
 def _tile_prep(cube_maps: CubeMaps, per_object: PerObject, cull: CullResult,
                eye, screen_to_world, width: int, height: int,
-               num_layers: int = 8, order=None, swap_sorted=None):
-    """Kernel operands of one frame -> (color, scene, tlist, counts,
-    vol_flt, face_flt, s, th, tw, tiles_x, k_layers).
+               num_layers: int = 8, order=None, swap_sorted=None,
+               depth_map=None):
+    """Kernel operands of one frame -> (color, depth_sel, scene, tlist,
+    counts, vol_flt, face_flt, s, th, tw, tiles_x, k_layers).
+
+    `depth_map` (H, W): the scene clip depth (the mesh); the padded scene
+    plane is 1 without it. `depth_sel` (N, 6, S, S) is the cube depth in
+    view distance, swapped like the faces, when both a scene depth and
+    cube depth maps exist; else None.
 
     `order` (N,): the cube-map rows are in this sorted volume order (the
     LOD sweep's output); every per-volume tensor is permuted to match.
@@ -77,6 +86,14 @@ def _tile_prep(cube_maps: CubeMaps, per_object: PerObject, cull: CullResult,
     else:
         color_sel = torch.where(swap_nf[:, :, None, None, None],
                                 color.transpose(-1, -2), color)
+    depth_sel = None
+    if depth_map is not None and cube_maps.depth is not None:
+        if swap_sorted is not None:   # the sweep delivered it swapped
+            depth_sel = cube_maps.depth
+        else:
+            dep = unproject_z(cube_maps.depth.float())
+            depth_sel = torch.where(swap_nf[:, :, None, None],
+                                    dep.transpose(-1, -2), dep)
 
     faces = []
     for f in range(6):
@@ -126,21 +143,25 @@ def _tile_prep(cube_maps: CubeMaps, per_object: PerObject, cull: CullResult,
 
     # pad with 0: exit_z <= 0 never passes, so pad pixels stay empty
     scene = torch.zeros((hp, wp), dtype=torch.float32, device=dev)
-    scene[:height, :width] = 1.0
-    return (color_sel, scene, tlist, counts, vol_flt, face_flt, s, th, tw,
-            tiles_x, k_layers)
+    scene[:height, :width] = 1.0 if depth_map is None else depth_map
+    return (color_sel, depth_sel, scene, tlist, counts, vol_flt, face_flt,
+            s, th, tw, tiles_x, k_layers)
 
 
 def composite_oit_tile(cube_maps: CubeMaps, per_object: PerObject,
                        cull: CullResult, eye, screen_to_world, width: int,
                        height: int, num_layers: int, order=None,
-                       swap_sorted=None, impl: str | None = None):
-    """Full OIT composite through kernel B2 -> (r, g, b, a) fields."""
-    (color_sel, scene, tlist, counts, vol_flt, face_flt, _s, th, tw,
-     tiles_x, k_layers) = _tile_prep(
+                       swap_sorted=None, depth_map=None,
+                       impl: str | None = None):
+    """Full OIT composite through kernel B2 (its depth variant when the
+    frame has a scene depth) -> (r, g, b, a) fields."""
+    (color_sel, depth_sel, scene, tlist, counts, vol_flt, face_flt, _s, th,
+     tw, tiles_x, k_layers) = _tile_prep(
         cube_maps, per_object, cull, eye, screen_to_world, width, height,
-        num_layers=num_layers, order=order, swap_sorted=swap_sorted)
+        num_layers=num_layers, order=order, swap_sorted=swap_sorted,
+        depth_map=depth_map)
     out = tile_composite(color_sel, scene, tlist, counts, vol_flt, face_flt,
-                         th, tw, tiles_x, k_layers, width, height, impl=impl)
+                         th, tw, tiles_x, k_layers, width, height,
+                         depth_sel=depth_sel, impl=impl)
     out = out[:, :height, :width]
     return out[0], out[1], out[2], out[3]

@@ -1,7 +1,7 @@
 """Scene and frame state as a dataclass of tensors.
 
-Counterpart of `multivolumes_tpu/scene/state.py` for the no-mesh frame,
-TAA history included. Differences from the JAX state, each deliberate:
+Counterpart of `multivolumes_tpu/scene/state.py`, TAA history and the
+opaque mesh included. Differences from the JAX state, each deliberate:
 
 * no oriented 3-variant stacks. The sweep kernel folds the per-face
   orientation (a permutation plus flips, `sweep.FACE_VARIANT` /
@@ -10,7 +10,8 @@ TAA history included. Differences from the JAX state, each deliberate:
   (N, L, L, L, 4) in the sweep dtype, the light's 4th channel zero so a
   texel is one aligned load. `vol_zmax` is computed per axis from the
   plain stack;
-* no mesh fields: the mesh pass is not ported yet;
+* no `mesh_shadow_quads`: that quad-packed copy of the shadow map is a
+  TPU gather layout; the port's PCF reads its four taps directly;
 * `frame_idx` is a Python int (the cohort ids are host arithmetic), and
   the frame updates the light stacks in place.
 """
@@ -22,8 +23,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from multivolumes_tpu.config import RenderConfig
-from multivolumes_tpu_torch.core import sh as sh_lib
+from multivolumes_tpu_torch.config import RenderConfig
+from multivolumes_tpu_torch.core import math3d, sh as sh_lib
 from multivolumes_tpu_torch.render import lightsweep
 from multivolumes_tpu_torch.render.perframe import build_per_object
 from multivolumes_tpu_torch.scene import volume as volume_lib
@@ -51,6 +52,13 @@ class SceneState:
     grad_dir: torch.Tensor       # (N_src, 3, L, L, L)
     taa_history: torch.Tensor    # (4, H, W) f32 resolved colour + history
                                  # metadata (channel 3)
+    mesh_verts: torch.Tensor     # (V, 6) f32 position + normal
+    mesh_indices: torch.Tensor   # (T, 3) int64; one placeholder triangle
+                                 # when no mesh is loaded
+    mesh_world: torch.Tensor     # (4, 4) from config.mesh_pos_scale
+    mesh_prev_wvp: torch.Tensor  # (4, 4) last frame's world-view-proj
+    mesh_shadow_map: torch.Tensor  # (Sm, Sm) light-view clip z, 1 = empty
+    scene_size: torch.Tensor     # () mesh extent x scale (shadow ortho)
 
 
 def sweep_dtype(config: RenderConfig) -> torch.dtype:
@@ -113,14 +121,22 @@ def to_light_sweep(maps, dtype) -> torch.Tensor:
     return torch.cat([m, torch.zeros_like(m[..., :1])], dim=-1).to(dtype)
 
 
-def create_scene(config: RenderConfig, device=None) -> SceneState:
+def mesh_world_matrix(config: RenderConfig, device=None) -> torch.Tensor:
+    """scale(s) @ translate(x, y, z) of `config.mesh_pos_scale`."""
+    mx, my, mz, ms = config.mesh_pos_scale
+    return math3d.scaling(ms, device) @ math3d.translation(
+        [mx, my, mz], device)
+
+
+def create_scene(config: RenderConfig, device="cuda") -> SceneState:
     """Build the initial scene (`MultiVolumes::LoadAssets`), with one full
-    light refresh so the per-frame cohort amortization starts coherent."""
+    light refresh so the per-frame cohort amortization starts coherent.
+    The scene lives on the card unless `device` says otherwise."""
     if config.light_mode != "sweep" or config.point_light:
         raise NotImplementedError(
             "only the sweep light maps are ported (light_mode='sweep', no "
             "point light); the reference light march is still to port")
-    device = torch.device(device or "cpu")
+    device = torch.device(device)
     n = config.num_volumes
     sdt = sweep_dtype(config)
     vols = volume_lib.make_volume_sources(config.num_volume_srcs,
@@ -165,6 +181,12 @@ def create_scene(config: RenderConfig, device=None) -> SceneState:
         ao_static=ao_static,
         grad_dir=grad_dir,
         taa_history=torch.zeros((4, config.height, config.width), **f32),
+        mesh_verts=torch.zeros((3, 6), **f32),
+        mesh_indices=torch.zeros((1, 3), dtype=torch.int64, device=device),
+        mesh_world=mesh_world_matrix(config, device),
+        mesh_prev_wvp=torch.eye(4, **f32),
+        mesh_shadow_map=torch.ones((config.shadow_map_size,) * 2, **f32),
+        scene_size=torch.tensor(1.0, **f32),
     )
 
 
@@ -205,4 +227,11 @@ def state_from_numpy(d: dict, device=None, dtype=None) -> SceneState:
         ao_static=t("ao_static"),
         grad_dir=t("grad_dir"),
         taa_history=t("taa_history"),
+        mesh_verts=t("mesh_verts"),
+        mesh_indices=torch.from_numpy(
+            np.asarray(d["mesh_indices"]).astype(np.int64)).to(device),
+        mesh_world=t("mesh_world"),
+        mesh_prev_wvp=t("mesh_prev_wvp"),
+        mesh_shadow_map=t("mesh_shadow_map"),
+        scene_size=t("scene_size"),
     )

@@ -40,8 +40,9 @@ def test_tile_prep_matches_jax(prep_case):
     cfg, jprep, port_args, port_kw = prep_case
     (jcolor, _jdep, jscene, jtl, jcnt, jvol, jface, js, jth, jtw, jtx,
      jk) = jprep
-    (color, scene, tlist, counts, vol_flt, face_flt, s, th, tw, tiles_x,
-     k_layers) = ptile._tile_prep(*port_args, **port_kw)
+    (color, depth_sel, scene, tlist, counts, vol_flt, face_flt, s, th, tw,
+     tiles_x, k_layers) = ptile._tile_prep(*port_args, **port_kw)
+    assert depth_sel is None  # no scene depth
     assert (s, th, tw, tiles_x, k_layers) == (js, jth, jtw, jtx, jk)
     np.testing.assert_array_equal(tlist.numpy(), np.asarray(jtl))
     np.testing.assert_array_equal(counts.numpy(), np.asarray(jcnt))

@@ -1,7 +1,10 @@
-"""Parity of the PyTorch port's core modules with the JAX package:
-math3d, camera, spherical harmonics, procedural volumes, per-object
-matrices and culling, sampling helpers. f32, atol 1e-5 (1e-6 where the
-computation is the same numpy code)."""
+"""Parity of the PyTorch port's core modules with the JAX package: the
+configuration, math3d, camera, spherical harmonics, the Halton jitter,
+the OBJ loader, procedural volumes, per-object matrices and culling,
+sampling helpers. f32, atol 1e-5 (1e-6 where the computation is the same
+numpy code); the configuration, the jitter and the loader exactly."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -10,22 +13,28 @@ import pytest
 import torch
 from torch_parity import n, port_per_object, t
 
+from multivolumes_tpu import config as jconfig
 from multivolumes_tpu.core import camera as jcam
+from multivolumes_tpu.core import halton as jhalton
 from multivolumes_tpu.core import math3d as jm
 from multivolumes_tpu.core import sh as jsh
 from multivolumes_tpu.ops import trilinear as jtri
 from multivolumes_tpu.render import composite as jcomp
 from multivolumes_tpu.render import cull as jcull
 from multivolumes_tpu.render.perframe import build_per_object as jbpo
+from multivolumes_tpu.scene import io_obj as jio_obj
 from multivolumes_tpu.scene import state as jstate
 from multivolumes_tpu.scene import volume as jvol
+from multivolumes_tpu_torch import config as pconfig
 from multivolumes_tpu_torch.core import camera as pcam
+from multivolumes_tpu_torch.core import halton as phalton
 from multivolumes_tpu_torch.core import math3d as pm
 from multivolumes_tpu_torch.core import sh as psh
 from multivolumes_tpu_torch.ops import trilinear as ptri
 from multivolumes_tpu_torch.render import composite as pcomp
 from multivolumes_tpu_torch.render import cull as pcull
 from multivolumes_tpu_torch.render.perframe import build_per_object
+from multivolumes_tpu_torch.scene import io_obj as pio_obj
 from multivolumes_tpu_torch.scene import state as pstate
 from multivolumes_tpu_torch.scene import volume as pvol
 
@@ -59,9 +68,11 @@ def test_math3d_matches_jax():
 def test_camera_matches_jax(which):
     aspect = 1.6
     if which == "default":
-        a, b = pcam.default_camera(aspect), jcam.default_camera(aspect)
+        a = pcam.default_camera(aspect, device="cpu")
+        b = jcam.default_camera(aspect)
     else:
-        a, b = pcam.orbit_camera(1.3, aspect), jcam.orbit_camera(1.3, aspect)
+        a = pcam.orbit_camera(1.3, aspect, device="cpu")
+        b = jcam.orbit_camera(1.3, aspect)
     close(a.eye, b.eye)
     close(a.view, b.view)
     close(a.proj, b.proj)
@@ -83,6 +94,84 @@ def test_sh_projection_and_irradiance_match_jax():
     nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
     close(psh.eval_irradiance(coeffs, t(nrm)),
           jsh.eval_irradiance(jnp.asarray(n(coeffs)), nrm))
+
+
+def test_config_is_the_jax_config():
+    """The port's own RenderConfig and SharedConsts have the JAX ones'
+    field names, defaults and constant values, so the copy cannot
+    drift."""
+    jf = {f.name: f.default for f in dataclasses.fields(jconfig.RenderConfig)}
+    pf = {f.name: f.default for f in dataclasses.fields(pconfig.RenderConfig)}
+    assert pf == jf
+    consts = [k for k in vars(jconfig.SharedConsts) if k.isupper()]
+    assert consts == [k for k in vars(pconfig.SharedConsts) if k.isupper()]
+    for k in consts:
+        assert getattr(pconfig.SharedConsts, k) == \
+            getattr(jconfig.SharedConsts, k), k
+    cfg = jconfig.RenderConfig(width=96, height=64, raster_far_tiers=(
+        (52, 8), (138, 7)))
+    pc = pconfig.RenderConfig(**dataclasses.asdict(cfg))
+    assert dataclasses.asdict(pc) == dataclasses.asdict(cfg)
+    assert (pc.viewport, pc.aspect_ratio) == (cfg.viewport, cfg.aspect_ratio)
+    assert pc.with_(width=32) == pconfig.RenderConfig(
+        **dataclasses.asdict(cfg.with_(width=32)))
+
+
+def test_entry_points_default_to_the_card():
+    """The functional entry points make their tensors on the card unless
+    asked for the CPU; without a card that is PyTorch's own error, never
+    a silent CPU run."""
+    cfg = pconfig.RenderConfig(width=32, height=32, grid_size=8,
+                               light_grid_size=8, num_volumes=1)
+    calls = (lambda: pcam.default_camera(1.6),
+             lambda: pcam.orbit_camera(0.5, 1.6),
+             lambda: pcam.make_camera([0.0, 1.0, -5.0], [0.0, 0.0, 0.0], 1.6),
+             lambda: pstate.create_scene(cfg))
+    for call in calls:
+        if torch.cuda.is_available():
+            out = call()
+            x = out.eye if hasattr(out, "eye") else out.volumes
+            assert x.is_cuda
+        else:
+            with pytest.raises((AssertionError, RuntimeError)):
+                call()
+
+
+def test_halton_and_sh_soa_match_jax():
+    for i in (0, 1, 7, 63, 64, 130):
+        np.testing.assert_array_equal(
+            phalton.halton_jitter(i, 1280.0, 800.0),
+            np.asarray(jhalton.halton_jitter(i, 1280.0, 800.0)))
+    assert phalton.halton23(5) == jhalton.halton23(5)
+    rng = np.random.RandomState(2)
+    coeffs = rng.randn(9, 3).astype(np.float32)
+    d = rng.randn(3, 8, 8).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    for pf, jf in ((psh.eval_irradiance_soa, jsh.eval_irradiance_soa),
+                   (psh.eval_radiance_soa, jsh.eval_radiance_soa)):
+        for a, b in zip(pf(t(coeffs), *(t(x) for x in d)),
+                        jf(jnp.asarray(coeffs), *d)):
+            close(a, b)
+
+
+def test_obj_loader_is_the_jax_loader(tmp_path):
+    """The port's copy of the numpy OBJ loader: the test mesh, and a file
+    with quads, negative indices and file normals (split vertices)."""
+    from torch_parity import write_test_mesh
+
+    paths = [write_test_mesh(tmp_path / "torus.obj", 300)]
+    quad = tmp_path / "quad.obj"
+    quad.write_text("v 0 0 0\nv 1 0 0\nv 1 1 0\nv 0 1 0\nv 0 0 1\n"
+                    "vn 0 0 1\nvn 0 1 0\n"
+                    "f 1//1 2//1 3//1 4//1\nf -5//2 -4//2 -1//2\n")
+    paths.append(str(quad))
+    for path in paths:
+        for for_dx in (True, False):
+            a = pio_obj.load_obj(path, for_dx=for_dx)
+            b = jio_obj.load_obj(path, for_dx=for_dx)
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x, y)
+            assert a.scene_size == b.scene_size
 
 
 def test_procedural_volumes_bit_equal():

@@ -2,7 +2,9 @@
 engine's `render_block` against K sequential `render_frame` calls (atol
 2e-5) and against the JAX `render_frames` (golden-image limits: mean
 < 2e-3, p99.9 < 3e-2; cf. tests/test_passes.py:475-537); each engine
-setter against the JAX engine's setter on the same inputs; and the app.
+setter against the JAX engine's setter on the same inputs, `set_mesh`
+and the raster-preset pick included; and the app, with and without a
+mesh.
 
 The engines are compared after a light that is not a sweep-axis tie: the
 JAX engine's light refresh picks its axis inside the trace, which breaks
@@ -18,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 from torch_parity import (clone_state, image_stats, jax_state_dict, n,
-                          port_camera)
+                          port_camera, port_config, write_test_mesh)
 
 from multivolumes_tpu.config import RenderConfig
 from multivolumes_tpu.core import camera as jcam
@@ -37,6 +39,7 @@ CFG = RenderConfig(width=96, height=64, grid_size=16, light_grid_size=8,
                    max_ray_samples=16, max_light_samples=8, num_volumes=4,
                    num_volume_srcs=2, cube_map_size=16, shadow_map_size=32,
                    light_axis=2)
+PCFG = port_config(CFG)
 K = 3
 LIGHT = ((10.0, 80.0, -20.0), (1.0, 0.5, 0.25), 5.0)   # y-dominant
 
@@ -59,10 +62,10 @@ def test_render_frames_matches_sequential_and_jax(block_case):
     start = pstate.state_from_numpy(st_d)
     seq, s = [], clone_state(start)
     for cam in cams:
-        out = pframe.render_frame(s, cam, CFG)
+        out = pframe.render_frame(s, cam, PCFG)
         seq.append(out.image)
         s = out.state
-    imgs, s_end = pframe.render_frames(clone_state(start), cams, CFG)
+    imgs, s_end = pframe.render_frames(clone_state(start), cams, PCFG)
     assert imgs.shape == (K, 3, CFG.height, CFG.width)
     for f in range(K):
         torch.testing.assert_close(imgs[f].permute(1, 2, 0), seq[f],
@@ -74,7 +77,7 @@ def test_render_frames_matches_sequential_and_jax(block_case):
     assert mean < 2e-3 and p999 < 3e-2, (mean, p999, mx)
 
     # the engine's block API: the same frames from the same state
-    eng = MultiRayCaster(CFG, device="cpu")
+    eng = MultiRayCaster(PCFG, device="cpu")
     eng.state = clone_state(start)
     block = eng.render_block(cams)
     torch.testing.assert_close(block, imgs, atol=2e-5, rtol=0)
@@ -86,7 +89,7 @@ def engines():
     """A JAX and a port engine on one f32 scene, both moved off the
     default light's axis tie."""
     cfg = CFG.with_(light_axis=None, use_bf16=False)
-    je, pe = JaxEngine(cfg), MultiRayCaster(cfg, device="cpu")
+    je, pe = JaxEngine(cfg), MultiRayCaster(port_config(cfg), device="cpu")
     je.set_light(*LIGHT)
     pe.set_light(*LIGHT)
     return je, pe
@@ -184,10 +187,46 @@ def test_world_and_sample_setters_match_jax(engines):
     for eng in (je, pe):
         with pytest.raises(ValueError, match="unrotated"):
             eng._check_worlds(rotated)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pe.set_mesh("bunny.obj")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pe.select_raster_preset((0.0, 0.0, -80.0))
+
+
+def test_mesh_setters_match_jax(tmp_path):
+    """set_mesh (scene size, far ladder, shadow map), the raster-preset
+    pick along an orbit and a close-up, and set_light's shadow-map and
+    light refresh, against the JAX engine."""
+    path = write_test_mesh(tmp_path / "torus.obj", 2000)
+    cfg = CFG.with_(light_axis=None, use_bf16=False)
+    je, pe = JaxEngine(cfg), MultiRayCaster(port_config(cfg), device="cpu")
+    for eng in (je, pe):
+        eng.set_mesh(path)
+    assert pe.config.show_mesh and je.config.show_mesh
+    assert pe.config.raster_far_tiers == je.config.raster_far_tiers
+    assert pe.config.raster_far_small == je.config.raster_far_small
+    assert pe.config.raster_far_tiers is not None
+    assert float(pe.state.scene_size) == float(je.state.scene_size)
+    np.testing.assert_array_equal(n(pe.state.mesh_world),
+                                  n(je.state.mesh_world))
+    np.testing.assert_array_equal(pe.state.mesh_indices.numpy(),
+                                  np.asarray(je.state.mesh_indices))
+    # the JAX engine loads through its C++ fast path: normals to 1e-6
+    np.testing.assert_allclose(n(pe.state.mesh_verts),
+                               n(je.state.mesh_verts), atol=1e-6)
+    # orbit eyes (far), a close-up (near), back out (far)
+    eyes = [(np.sin(a) * 60.0, 6.0, np.cos(a) * 60.0)
+            for a in np.linspace(0.0, 3.0, 6)]
+    eyes += [(0.0, -5.0, -1.0), (0.0, 6.0, -60.0)]
+    picks = [(pe.select_raster_preset(e), je.select_raster_preset(e))
+             for e in eyes]
+    assert all(a == b for a, b in picks), picks
+    assert {a for a, _ in picks} == {"near", "far"}
+    for eng in (je, pe):
+        eng.set_light(*LIGHT)
+    sj, sp = n(je.state.mesh_shadow_map), n(pe.state.mesh_shadow_map)
+    cov = (sj < 1) | (sp < 1)
+    assert cov.sum() > 50
+    assert float(((sj < 1) == (sp < 1))[cov].mean()) >= 0.999
+    both = (sj < 1) & (sp < 1)
+    assert np.abs(sj[both] - sp[both]).max() <= 2.0 ** -15
+    _check_light(je, pe)
 
 
 def _read_png(path):
@@ -219,8 +258,14 @@ def test_app_writes_png(tmp_path, capsys):
     img = _read_png(out)
     assert img.shape == (64, 96, 3) and img.std() > 1.0
     assert "frame 1:" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        app.main(["--warp", *small, "--mesh", "bunny.obj"])
+    # with the opaque mesh: loaded, shown, opaque in the image
+    mesh_out = tmp_path / "mesh.png"
+    app.main(["--warp", *small, "--mesh",
+              write_test_mesh(tmp_path / "torus.obj", 2000), "--frames",
+              "2", "--animate", "--out", str(mesh_out)])
+    img_m = _read_png(mesh_out)
+    assert img_m.shape == (64, 96, 3)
+    assert np.abs(img_m.astype(np.float32) - img).max() > 50  # the mesh
     if not torch.cuda.is_available():
         # no silent CPU run: without --warp the app needs the card
         with pytest.raises(SystemExit) as exc:

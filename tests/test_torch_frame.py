@@ -18,7 +18,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import image_stats, jax_state_dict, n, port_camera
+from torch_parity import (image_stats, jax_state_dict, n, port_camera,
+                          port_config)
 
 from multivolumes_tpu.config import RenderConfig
 from multivolumes_tpu.core import camera as jcam
@@ -64,7 +65,8 @@ def test_render_frame_matches_jax(frames):
     ps = pstate.state_from_numpy(jax_state_dict(st0))
     for tm, (img_j, st_j) in zip(TIMES, outs):
         out = pframe.render_frame(
-            ps, port_camera(jcam.orbit_camera(tm, cfg.aspect_ratio)), cfg)
+            ps, port_camera(jcam.orbit_camera(tm, cfg.aspect_ratio)),
+            port_config(cfg))
         ps = out.state
         mean, p999, mx = image_stats(out.image, img_j, 99.9)
         assert mean < 2e-3 and p999 < 3e-2, (tm, mean, p999, mx)
@@ -85,7 +87,7 @@ def test_render_frame_matches_jax(frames):
 
 def test_create_scene_matches_jax(jax_scene_f32):
     cfg, st0 = CONFIGS["f32"], jax_scene_f32
-    ps = pstate.create_scene(cfg)
+    ps = pstate.create_scene(port_config(cfg), device="cpu")
     d = jax_state_dict(st0)
     for name in ("volumes", "volume_worlds", "radiance", "light_pos",
                  "light_color", "ambient", "vol_zmax"):
@@ -110,7 +112,7 @@ def test_create_scene_matches_jax(jax_scene_f32):
 
 def test_engine_renders_with_baked_axis():
     cfg = CONFIGS["f32"].with_(light_axis=None, num_volumes=4)
-    eng = MultiRayCaster(cfg, device="cpu")
+    eng = MultiRayCaster(port_config(cfg), device="cpu")
     assert eng.config.light_axis == 2
     img = eng.render()
     assert img.shape == (cfg.height, cfg.width, 3)
@@ -119,24 +121,33 @@ def test_engine_renders_with_baked_axis():
 
 
 @pytest.mark.parametrize("change", [
-    dict(config=dict(lod_bucket_caps=None)), dict(show_mesh=True),
+    dict(config=dict(lod_bucket_caps=None)),
+    dict(config=dict(composite_mode="warp")),
     dict(config=dict(march_mode="reference")),
     dict(config=dict(composite_mode="gather")),
     dict(config=dict(point_light=True)), dict(mesh=object())])
 def test_unported_settings_raise(change):
-    cfg = CONFIGS["f32"].with_(**change.pop("config", {}))
+    cfg = port_config(CONFIGS["f32"].with_(**change.pop("config", {})))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pframe.check_supported(cfg, **change)
 
 
 def test_port_imports_no_jax():
-    code = ("import sys\n"
-            "import multivolumes_tpu_torch\n"
-            "from multivolumes_tpu_torch import engine\n"
-            "from multivolumes_tpu_torch.render import frame, taa\n"
-            "from multivolumes_tpu_torch.scene import io_dds\n"
-            "from multivolumes_tpu_torch import app\n"
-            "assert 'jax' not in sys.modules, 'jax was imported'\n")
+    """Every module of the port imports neither JAX nor any module of the
+    JAX package (whose `__init__` would run on the first one)."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import multivolumes_tpu_torch as pkg\n"
+            "names = [m.name for m in pkgutil.walk_packages(\n"
+            "    pkg.__path__, pkg.__name__ + '.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "for need in ('render.mesh', 'scene.io_obj', 'app', 'config',\n"
+            "             'engine', 'render.frame', 'utils.png'):\n"
+            "    assert pkg.__name__ + '.' + need in names, need\n"
+            "bad = [m for m in sys.modules if m == 'jax'\n"
+            "       or m.startswith('jax.') or m == 'multivolumes_tpu'\n"
+            "       or m.startswith('multivolumes_tpu.')]\n"
+            "assert not bad, bad\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root)
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,

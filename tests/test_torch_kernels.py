@@ -11,11 +11,13 @@ the card it runs without them:
 import numpy as np
 import pytest
 import torch
-from torch_parity import clone_state, cuda_device, image_stats, taa_operands
+from torch_parity import (clone_state, cuda_device, image_stats,
+                          taa_operands, write_test_mesh)
 
-from multivolumes_tpu.config import RenderConfig
 from multivolumes_tpu_torch import ops
+from multivolumes_tpu_torch.config import RenderConfig
 from multivolumes_tpu_torch.core import camera as cam_lib
+from multivolumes_tpu_torch.engine import MultiRayCaster
 from multivolumes_tpu_torch.ops import lightsweep as light_ops
 from multivolumes_tpu_torch.ops import sweep as sweep_ops
 from multivolumes_tpu_torch.ops import taa as taa_ops
@@ -27,6 +29,8 @@ from multivolumes_tpu_torch.scene import state as state_lib
 SMALL = RenderConfig(width=160, height=96, grid_size=16, light_grid_size=8,
                      max_ray_samples=24, max_light_samples=8, num_volumes=10,
                      num_volume_srcs=2, cube_map_size=32)
+# the kernels of a frame without the opaque mesh
+NO_MESH = ("sweep", "composite", "light_self_scan", "light_advect_mul", "taa")
 
 
 def _scan_case(device, c=4, l=24, seed=0):
@@ -75,6 +79,13 @@ def test_dispatch_rule_on_cpu():
     a = light_ops.light_self_scan(rho, du, dv, f)
     b = light_ops.light_self_scan(rho, du, dv, f, impl="plain")
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+    sm = _sm_case("cpu", 1, 6)
+    with pytest.raises(ValueError, match="CUDA"):
+        light_ops.light_self_scan(rho, du, dv, f, *sm, impl="kernel")
+    with pytest.raises(ValueError, match="together"):
+        light_ops.light_self_scan(rho, du, dv, f, sm_vol=sm[0])
+    a = light_ops.light_self_scan(rho, du, dv, f, *sm)
+    assert not torch.equal(a[0], b[0])   # the shadow term took effect
     # plain versions are not kernel launches
     assert all(v == 0 for v in ops.LAUNCHES.values())
     args, kw = _b1_case("cpu", torch.float32)
@@ -115,6 +126,69 @@ def test_b3_b4_kernels_match_plain_on_card():
             light_ops.light_advect_mul(here_p, t_in, du, dv, impl="kernel"),
             light_ops.light_advect_mul(here_p, t_in, du, dv, impl="plain"),
             atol=1e-5, rtol=0)
+
+
+def _sm_case(device, c, l, seed=1):
+    """Shadow-map operands with a penumbra: the compared planes differ by
+    less than a few slices of depth."""
+    rng = np.random.RandomState(seed)
+    sm = 0.4 + 0.05 * rng.rand(c, l, l)
+    z = 0.4 + 0.05 * rng.rand(c, l, l)
+    dz = rng.uniform(2e-4, 1e-3, c) * np.where(rng.rand(c) < 0.5, -1, 1)
+    arrs = (sm, z, dz, np.maximum(np.abs(dz), 1e-6))
+    return tuple(torch.tensor(a, dtype=torch.float32, device=device)
+                 for a in arrs)
+
+
+@pytest.mark.cuda
+def test_b3_shadow_map_kernel_matches_plain_on_card():
+    dev = cuda_device()
+    for c, l in ((1, 96), (4, 24)):
+        rho, du, dv, f, _t = _scan_case(dev, c=c, l=l)
+        sm = _sm_case(dev, c, l)
+        ops.reset_launches()
+        here_k, sout_k = light_ops.light_self_scan(rho, du, dv, f, *sm,
+                                                   impl="kernel")
+        assert ops.LAUNCHES["light_self_scan_sm"] == 1
+        here_p, sout_p = light_ops.light_self_scan(rho, du, dv, f, *sm,
+                                                   impl="plain")
+        lit = here_p / torch.clamp(
+            light_ops.light_self_scan(rho, du, dv, f, impl="plain")[0],
+            min=1e-30)
+        assert bool(((lit > 0.01) & (lit < 0.99)).any())  # a penumbra
+        torch.testing.assert_close(here_k, here_p, atol=1e-5, rtol=0)
+        torch.testing.assert_close(sout_k, sout_p, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_b2_depth_kernel_matches_plain_on_card(tmp_path):
+    """B2's depth variant on the operands of a frame with the mesh."""
+    dev = cuda_device()
+    cfg = SMALL.with_(shadow_map_size=64)
+    eng = MultiRayCaster(cfg, device=dev)
+    eng.set_mesh(write_test_mesh(tmp_path / "torus.obj", 2000))
+    cam = cam_lib.make_camera([10.0, -4.0, -35.0], [0.0, -2.0, 5.0],
+                              cfg.aspect_ratio, device=dev)
+    captured = {}
+    orig = tilecast.tile_composite
+
+    def spy(*a, **k):
+        captured.setdefault("args", (a, k))
+        return orig(*a, **k)
+
+    tilecast.tile_composite = spy
+    try:
+        frame_lib.render_frame(eng.state, cam, eng.config, impl="plain")
+    finally:
+        tilecast.tile_composite = orig
+    a, k = captured["args"]
+    k = {key: v for key, v in k.items() if key != "impl"}
+    assert k["depth_sel"] is not None
+    ops.reset_launches()
+    got = orig(*a, **k, impl="kernel")
+    assert ops.LAUNCHES["composite_depth"] == 1
+    want = orig(*a, **k, impl="plain")
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda
@@ -162,7 +236,7 @@ def test_frame_kernels_match_plain_on_card(use_bf16):
     copy = clone_state(st)
     ops.reset_launches()
     img_k = frame_lib.render_frame(st, cam, cfg, impl="kernel").image
-    assert all(v > 0 for v in ops.LAUNCHES.values()), ops.LAUNCHES
+    assert all(ops.LAUNCHES[k] > 0 for k in NO_MESH), ops.LAUNCHES
     img_p = frame_lib.render_frame(copy, cam, cfg, impl="plain").image
     mean, p999, mx = image_stats(img_k, img_p, 99.9)
     assert mean < 2e-3 and p999 < 3e-2, (mean, p999, mx)

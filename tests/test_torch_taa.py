@@ -130,7 +130,21 @@ def test_taa_rejects_stale_history():
 
 
 def test_windowed_reprojection_waits_for_the_mesh():
-    cur, hist, vel = _inputs(8, 8, with_velocity=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ptaa.temporal_aa([t(x) for x in cur], t(hist), [t(x) for x in vel],
-                         reproj_center=(4.0, 4.0), reproj_window=4)
+    """The windowed reprojection came with the mesh pass: a window around
+    the mesh centre against the JAX Pallas path (more cases in
+    tests/test_torch_mesh.py), and a window as large as the screen falls
+    back to the full-screen reprojection, as in the JAX package."""
+    cur, hist, vel = _inputs(16, 24, with_velocity=True)
+    args = ([t(x) for x in cur], t(hist), [t(x) for x in vel])
+    _rgb, nh_p = ptaa.temporal_aa(
+        *args, reproj_center=(torch.tensor(9.5), torch.tensor(7.0)),
+        reproj_window=8)
+    (_r, _g, _b), nh_j = jtaa.temporal_aa(
+        _jax(cur), jnp.asarray(hist), _jax(vel), use_pallas=True,
+        reproj_center=(jnp.float32(9.5), jnp.float32(7.0)), reproj_window=8)
+    np.testing.assert_allclose(n(nh_p), n(nh_j), atol=ATOL)
+    _rgb, full = ptaa.temporal_aa(*args)
+    _rgb, wide = ptaa.temporal_aa(
+        *args, reproj_center=(torch.tensor(9.5), torch.tensor(7.0)),
+        reproj_window=16)
+    torch.testing.assert_close(wide, full, atol=0, rtol=0)

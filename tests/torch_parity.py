@@ -29,6 +29,56 @@ def jax_state_dict(state) -> dict:
             for f in dataclasses.fields(state)}
 
 
+def port_config(jcfg):
+    """The port's RenderConfig with every field of a JAX RenderConfig."""
+    from multivolumes_tpu_torch.config import RenderConfig
+
+    return RenderConfig(**dataclasses.asdict(jcfg))
+
+
+def write_test_mesh(path, n_tris: int, major: float = 3.0,
+                    minor: float = 1.2, y0: float = 2.0) -> str:
+    """Write a closed torus of about `n_tris` triangles as an OBJ and
+    return the path.
+
+    Test data standing in for the reference demo's `Assets/bunny.obj`,
+    which is not in the repository: a closed surface of bunny size
+    (69,451 triangles at 70k) in OBJ units. The ring lies flat (axis y),
+    centred at height y0, so at the demo's mesh placement (0, -9, 0,
+    1.8) it reaches into the lowest volumes. Faces wind counter-clockwise
+    seen from outside (the OBJ convention), so after `load_obj(for_dx=
+    True)` front faces have positive screen area, as the bunny's do."""
+    nv = max(3, int(round(np.sqrt(n_tris / 4.0))))
+    nu = max(3, int(round(n_tris / (2.0 * nv))))
+    th = np.arange(nu) * (2.0 * np.pi / nu)
+    ph = np.arange(nv) * (2.0 * np.pi / nv)
+    t, p = np.meshgrid(th, ph, indexing="ij")              # (nu, nv)
+    ring = major + minor * np.cos(p)
+    verts = np.stack([ring * np.cos(t), y0 + minor * np.sin(p),
+                      ring * np.sin(t)], -1).reshape(-1, 3)
+    i, j = np.meshgrid(np.arange(nu), np.arange(nv), indexing="ij")
+    a = i * nv + j
+    b = ((i + 1) % nu) * nv + j
+    c = ((i + 1) % nu) * nv + (j + 1) % nv
+    d = i * nv + (j + 1) % nv
+    faces = np.concatenate([np.stack([a, b, c], -1).reshape(-1, 3),
+                            np.stack([a, c, d], -1).reshape(-1, 3)])
+    # orient outward: the first face's normal against the tube's outward
+    # direction at its first vertex
+    v0, v1, v2 = verts[faces[0]]
+    nrm = np.cross(v1 - v0, v2 - v0)
+    centre = np.array([major * np.cos(th[0]), y0, major * np.sin(th[0])])
+    if np.dot(nrm, v0 - centre) < 0:
+        faces = faces[:, [0, 2, 1]]
+    with open(path, "w") as f:
+        f.write(f"# torus, {len(faces)} triangles\n")
+        f.write("".join(f"v {x:.6f} {y:.6f} {z:.6f}\n"
+                        for x, y, z in verts))
+        f.write("".join(f"f {x + 1} {y + 1} {z + 1}\n"
+                        for x, y, z in faces))
+    return str(path)
+
+
 def port_camera(jcam):
     """The port's Camera holding a JAX camera's matrices."""
     from multivolumes_tpu_torch.core.camera import Camera
