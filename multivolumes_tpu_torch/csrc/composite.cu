@@ -134,9 +134,13 @@ __global__ void tile_composite_kernel(
     const float* __restrict__ vol_flt, const float* __restrict__ face_flt,
     const float* __restrict__ scene, float* __restrict__ out, int n, int s,
     int hp, int wp, int th, int tw, int tiles_x, int k_layers, int width,
-    int height) {
+    int height, int tile_row0) {
   // the grid tiles (hp, wp) exactly (the wrapper checks th % 8 == 0 and
-  // tw % 32 == 0), so every thread reaches the tile vote below
+  // tw % 32 == 0), so every thread reaches the tile vote below.
+  // (hp, wp) may be a band of tile rows of a taller screen (the sharded
+  // frame step): tlist, counts, scene and out are then the band's slices
+  // and py is a row of the band; only the pixel's NDC y takes the band's
+  // offset of tile_row0 tile rows.
   const int px = blockIdx.x * kBlockX + threadIdx.x;
   const int py = blockIdx.y * kBlockY + threadIdx.y;
   bool mesh_tile = false;
@@ -155,7 +159,8 @@ __global__ void tile_composite_kernel(
   const int t = (py / th) * tiles_x + px / tw;
   const int count = counts[t];
   const float xg = ((float)px + 0.5f) / width * 2.0f - 1.0f;
-  const float yg = -(((float)py + 0.5f) / height * 2.0f - 1.0f);
+  const float yg =
+      -(((float)(py + tile_row0 * th) + 0.5f) / height * 2.0f - 1.0f);
   const float scene_z = scene[(size_t)py * wp + px];
   // scene view distance (`UnprojectZ`), rounded as the plain version
   const float d_scene = __fdiv_rn(
@@ -283,14 +288,15 @@ cudaError_t launch(const void* color, const void* depth, const void* tlist,
                    const void* counts, const void* vol_flt,
                    const void* face_flt, const void* scene, void* out, int n,
                    int s, int hp, int wp, int th, int tw, int tiles_x,
-                   int k_layers, int width, int height, cudaStream_t stream) {
+                   int k_layers, int width, int height, int tile_row0,
+                   cudaStream_t stream) {
   dim3 block(kBlockX, kBlockY);
   dim3 grid((wp + kBlockX - 1) / kBlockX, (hp + kBlockY - 1) / kBlockY);
   tile_composite_kernel<T, kDepth><<<grid, block, 0, stream>>>(
       (const T*)color, (const float*)depth, (const int*)tlist,
       (const int*)counts, (const float*)vol_flt, (const float*)face_flt,
       (const float*)scene, (float*)out, n, s, hp, wp, th, tw, tiles_x,
-      k_layers, width, height);
+      k_layers, width, height, tile_row0);
   return cudaGetLastError();
 }
 
@@ -300,15 +306,17 @@ cudaError_t launch_typed(int is_bf16, const void* color, const void* depth,
                          const void* vol_flt, const void* face_flt,
                          const void* scene, void* out, int n, int s, int hp,
                          int wp, int th, int tw, int tiles_x, int k_layers,
-                         int width, int height, cudaStream_t st) {
+                         int width, int height, int tile_row0,
+                         cudaStream_t st) {
   return is_bf16
       ? launch<__nv_bfloat16, kDepth>(color, depth, tlist, counts, vol_flt,
                                       face_flt, scene, out, n, s, hp, wp, th,
                                       tw, tiles_x, k_layers, width, height,
-                                      st)
+                                      tile_row0, st)
       : launch<float, kDepth>(color, depth, tlist, counts, vol_flt,
                               face_flt, scene, out, n, s, hp, wp, th, tw,
-                              tiles_x, k_layers, width, height, st);
+                              tiles_x, k_layers, width, height, tile_row0,
+                              st);
 }
 
 }  // namespace
@@ -317,24 +325,26 @@ cudaError_t launch_typed(int is_bf16, const void* color, const void* depth,
 // pre-swapped; depth (N, 6, S, S) f32 view distance, swapped like color,
 // or null for the plain warp; tlist (T, N) i32; counts (T,) i32; vol_flt
 // (N, 21) f32; face_flt (N, 6, 9) f32; scene (Hp, Wp) f32 clip depth; out
-// (4, Hp, Wp).
+// (4, Hp, Wp). With tile_row0 > 0, (Hp, Wp) is a band of tile rows that
+// starts tile_row0 tile rows down a screen of `height` pixel rows.
 extern "C" int mv_tile_composite(const void* color, const void* depth,
                                  const void* tlist, const void* counts,
                                  const void* vol_flt, const void* face_flt,
                                  const void* scene, void* out, int n, int s,
                                  int hp, int wp, int th, int tw, int tiles_x,
                                  int k_layers, int width, int height,
-                                 int is_bf16, void* stream) {
+                                 int tile_row0, int is_bf16, void* stream) {
   if (k_layers < 1 || k_layers > kMaxLayers) return (int)cudaErrorInvalidValue;
   if (th % kBlockY != 0 || tw % kBlockX != 0) return (int)cudaErrorInvalidValue;
   if (hp % th != 0 || wp % tw != 0) return (int)cudaErrorInvalidValue;
+  if (tile_row0 < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = depth
       ? launch_typed<true>(is_bf16, color, depth, tlist, counts, vol_flt,
                            face_flt, scene, out, n, s, hp, wp, th, tw,
-                           tiles_x, k_layers, width, height, st)
+                           tiles_x, k_layers, width, height, tile_row0, st)
       : launch_typed<false>(is_bf16, color, depth, tlist, counts, vol_flt,
                             face_flt, scene, out, n, s, hp, wp, th, tw,
-                            tiles_x, k_layers, width, height, st);
+                            tiles_x, k_layers, width, height, tile_row0, st);
   return (int)err;
 }

@@ -1,7 +1,8 @@
-// The fused temporal-AA resolve (B5).
+// The fused temporal-AA resolve (B5) and its row-band form (B5').
 //
 // Replaces multivolumes_tpu/ops/pallas/taa_kernel.py::taa_resolve (the
-// band kernel `_taa_band_kernel` through `_resolve_bands`). Semantics twin:
+// band kernel `_taa_band_kernel` through `_resolve_bands`) and, as
+// mv_taa_resolve_band, ::taa_resolve_sharded. Semantics twin:
 // multivolumes_tpu/render/taa.py::_temporal_aa_jnp, a port of
 // CSTemporalAA.hlsl:254-336. Per pixel:
 //   1. Reinhard in YCoCg of the current colour and its 8 neighbours
@@ -16,6 +17,16 @@
 // loads that neighbouring threads share through L1. The TPU kernel's
 // padding to 16-row bands and 128 lanes and its three row-shifted copies
 // of the frame (Pallas blocks cannot overlap) are not needed here.
+//
+// Band form (kernel<true>): the sharded frame step resolves one band of
+// pixel rows per device of the mesh's "rows" axis. `cur` is then the band
+// with one halo row above and below, (4, hb + 2, W), and the row tap reads
+// row y + 1 + dy of it with no clamp in y (the halo of the first and last
+// band is the replicated edge row, so the image edge clamps as in B5);
+// hist, blur and out hold the band's hb rows. Everything else is the same
+// per-pixel code, so the bands equal B5 on the whole image bit for bit.
+// The TPU version pads the rows to 16 x rows and builds three row-shifted
+// copies of the frame; neither is needed here.
 //
 // What bounds it on the card: device memory, about 64 bytes per pixel
 // (65 MB at 1280 x 800, some 20 us at 3.35 TB/s), against ~300 flops and
@@ -84,6 +95,7 @@ __device__ __forceinline__ float display_map(float x) {
   return powf(fabsf(x), 1.25f);
 }
 
+template <bool kBand>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 taa_resolve_kernel(const float* __restrict__ cur,
                    const float* __restrict__ hist,
@@ -94,9 +106,12 @@ taa_resolve_kernel(const float* __restrict__ cur,
   if (x >= w || y >= h) return;
   const size_t plane = (size_t)h * w;
   const size_t p = (size_t)y * w + x;
+  // the current frame: h rows, or the band's h rows inside h + 2
+  const size_t cplane = kBand ? (size_t)(h + 2) * w : plane;
+  const size_t pc = kBand ? p + w : p;
 
-  const float cr = cur[p], cg_ = cur[plane + p], cb = cur[2 * plane + p];
-  const float ca = cur[3 * plane + p];
+  const float cr = cur[pc], cg_ = cur[cplane + pc];
+  const float cb = cur[2 * cplane + pc], ca = cur[3 * cplane + pc];
   const float h0 = hist[p], h1 = hist[plane + p], h2 = hist[2 * plane + p];
   const float h3 = hist[3 * plane + p];
   const float cur_blur = blur[p];
@@ -120,10 +135,10 @@ taa_resolve_kernel(const float* __restrict__ cur,
   for (int t = 0; t < 8; ++t) {
     const float wt = t < 4 ? 0.5f : 0.25f;
     const int xx = min(max(x + kDx[t], 0), w - 1);
-    const int yy = min(max(y + kDy[t], 0), h - 1);
+    const int yy = kBand ? y + 1 + kDy[t] : min(max(y + kDy[t], 0), h - 1);
     const size_t q = (size_t)yy * w + xx;
-    const YCoCg n = tm(cur[q], cur[plane + q], cur[2 * plane + q]);
-    const float na = cur[3 * plane + q] < kAlphaBound ? 0.0f : 1.0f;
+    const YCoCg n = tm(cur[q], cur[cplane + q], cur[2 * cplane + q]);
+    const float na = cur[3 * cplane + q] < kAlphaBound ? 0.0f : 1.0f;
     const float nv[3] = {n.y, n.co, n.cg};
 #pragma unroll
     for (int ci = 0; ci < 3; ++ci) {
@@ -206,8 +221,21 @@ extern "C" int mv_taa_resolve(const void* cur, const void* hist,
                               int w, void* stream) {
   dim3 block(kBlockX, kBlockY);
   dim3 grid((w + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY);
-  taa_resolve_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+  taa_resolve_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
       (const float*)cur, (const float*)hist, (const float*)blur, (float*)out,
       (float*)img, h, w);
+  return (int)cudaGetLastError();
+}
+
+// cur_halo (4, hb + 2, W): the band with its halo rows; hist, out
+// (4, hb, W); blur (hb, W).
+extern "C" int mv_taa_resolve_band(const void* cur_halo, const void* hist,
+                                   const void* blur, void* out, int hb, int w,
+                                   void* stream) {
+  dim3 block(kBlockX, kBlockY);
+  dim3 grid((w + kBlockX - 1) / kBlockX, (hb + kBlockY - 1) / kBlockY);
+  taa_resolve_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
+      (const float*)cur_halo, (const float*)hist, (const float*)blur,
+      (float*)out, nullptr, hb, w);
   return (int)cudaGetLastError();
 }

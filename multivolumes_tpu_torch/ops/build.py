@@ -27,6 +27,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_ext"
@@ -39,13 +41,15 @@ _I = ctypes.c_int
 SIGNATURES = {
     "mv_sweep_march": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _P],
-    "mv_tile_composite": [_P, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "mv_tile_composite": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "mv_light_self_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "mv_light_self_scan_sm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                               _P],
     "mv_light_advect_mul": [_P, _P, _P, _P, _P, _I, _I, _P],
     "mv_taa_resolve": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "mv_taa_resolve_band": [_P, _P, _P, _P, _I, _I, _P],
+    "mv_raster_bin_eval": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -114,10 +118,15 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, *args) -> None:
-    """Call C entry point `name`; raise if the launch was refused."""
+def launch(name: str, *args, device) -> None:
+    """Call C entry point `name` with `args` and, as its last argument,
+    the current stream of `device`, with `device` selected (a launch goes
+    to the thread's current device, whatever device its pointers are on);
+    raise if the launch was refused."""
     lib = library()
-    err = getattr(lib, name)(*args)
+    with torch.cuda.device(device):
+        err = getattr(lib, name)(
+            *args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         lib.mv_error_string.restype = ctypes.c_char_p
         lib.mv_error_string.argtypes = [ctypes.c_int]

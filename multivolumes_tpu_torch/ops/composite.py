@@ -30,6 +30,14 @@ tlist (T, N) int32 per-tile volume ids, the first counts[t] valid;
 vol_flt (N, 21): local basis B (9), local eye (3), world-view-proj
 columns 2 and 3 (8), n_eff; face_flt (N, 6, 9): texel-scaled pu, pv,
 den. Returns (4, Hp, Wp) premultiplied RGBA.
+
+Row bands (the sharded frame step, a mesh with a "rows" axis): with
+`tile_row0`, the operands `scene`, `tlist` and `counts` are one band of
+tile rows, cut from a screen of `height` pixel rows `tile_row0` tile rows
+down, and the result is that band of the screen. Only the pixel's NDC y
+takes the offset; a band with `tile_row0 = 0` and the full height is the
+unbanded launch. The band launches are counted as `composite_band` /
+`composite_depth_band`.
 """
 
 from __future__ import annotations
@@ -70,7 +78,8 @@ def mesh_tiles(scene, th: int, tw: int):
 
 def tile_composite_plain(color, scene, tlist, counts, vol_flt, face_flt,
                          th: int, tw: int, tiles_x: int, k_layers: int,
-                         width: int, height: int, depth_sel=None):
+                         width: int, height: int, depth_sel=None,
+                         tile_row0: int = 0):
     """Plain version of B2 (see the module docstring)."""
     hp, wp = scene.shape
     s = color.shape[-1]
@@ -78,8 +87,8 @@ def tile_composite_plain(color, scene, tlist, counts, vol_flt, face_flt,
     rows = torch.arange(hp, device=dev)
     cols = torch.arange(wp, device=dev)
     xg = ((cols.float() + 0.5) / width * 2.0 - 1.0)[None, :].expand(hp, wp)
-    yg = (-((rows.float() + 0.5) / height * 2.0 - 1.0))[:, None].expand(
-        hp, wp)
+    yg = (-(((rows + tile_row0 * th).float() + 0.5) / height * 2.0
+            - 1.0))[:, None].expand(hp, wp)
     tile = (rows // th)[:, None] * tiles_x + (cols // tw)[None, :]
     cnt = counts.long()[tile]
     img = color.float()
@@ -183,15 +192,22 @@ def tile_composite_plain(color, scene, tlist, counts, vol_flt, face_flt,
 
 def tile_composite(color, scene, tlist, counts, vol_flt, face_flt, th: int,
                    tw: int, tiles_x: int, k_layers: int, width: int,
-                   height: int, depth_sel=None, impl: str | None = None):
+                   height: int, depth_sel=None, impl: str | None = None,
+                   tile_row0: int | None = None):
     """B2 wrapper -> (4, Hp, Wp) premultiplied RGBA; with `depth_sel` the
-    depth-weighted variant (see the module docstring)."""
+    depth-weighted variant, with `tile_row0` (an int, 0 for the first
+    band) a band of tile rows (see the module docstring)."""
     if not 1 <= k_layers <= MAX_LAYERS:
         raise ValueError(f"k_layers must be in [1, {MAX_LAYERS}]")
+    band = tile_row0 is not None
+    tile_row0 = tile_row0 or 0
+    if tile_row0 < 0:
+        raise ValueError(f"tile_row0 must be >= 0, got {tile_row0}")
     if not ops.use_kernel(impl, color):
         return tile_composite_plain(color, scene, tlist, counts, vol_flt,
                                     face_flt, th, tw, tiles_x, k_layers,
-                                    width, height, depth_sel=depth_sel)
+                                    width, height, depth_sel=depth_sel,
+                                    tile_row0=tile_row0)
     from multivolumes_tpu_torch.ops import build
 
     n, s = color.shape[0], color.shape[-1]
@@ -222,7 +238,8 @@ def tile_composite(color, scene, tlist, counts, vol_flt, face_flt, th: int,
         0 if depth_sel is None else depth_sel.data_ptr(), tlist.data_ptr(),
         counts.data_ptr(), vol_flt.data_ptr(), face_flt.data_ptr(),
         scene.data_ptr(), out.data_ptr(), n, s, hp, wp, th, tw, tiles_x,
-        k_layers, width, height, int(color.dtype == torch.bfloat16),
-        torch.cuda.current_stream(color.device).cuda_stream)
-    ops.count_launch("composite" if depth_sel is None else "composite_depth")
+        k_layers, width, height, tile_row0,
+        int(color.dtype == torch.bfloat16), device=color.device)
+    ops.count_launch(("composite" if depth_sel is None else "composite_depth")
+                     + ("_band" if band else ""))
     return out

@@ -164,17 +164,17 @@ def light_self_scan(rho_o, du, dv, f_corr, sm_vol=None, z_entry=None,
         raise ValueError(f"bad shapes {rho_o.shape} {du.shape} {dv.shape}")
     here = torch.empty_like(rho_o)
     s_out = torch.empty((c, l, l), dtype=torch.float32, device=rho_o.device)
-    stream = torch.cuda.current_stream(rho_o.device).cuda_stream
     if has_sm:
         build.launch("mv_light_self_scan_sm", rho_o.data_ptr(),
                      du.data_ptr(), dv.data_ptr(), f_corr.data_ptr(),
                      e0.data_ptr(), dz_slice.data_ptr(), soft.data_ptr(),
-                     here.data_ptr(), s_out.data_ptr(), c, l, stream)
+                     here.data_ptr(), s_out.data_ptr(), c, l,
+                     device=rho_o.device)
         ops.count_launch("light_self_scan_sm")
     else:
         build.launch("mv_light_self_scan", rho_o.data_ptr(), du.data_ptr(),
                      dv.data_ptr(), f_corr.data_ptr(), here.data_ptr(),
-                     s_out.data_ptr(), c, l, stream)
+                     s_out.data_ptr(), c, l, device=rho_o.device)
         ops.count_launch("light_self_scan")
     return here, s_out
 
@@ -195,6 +195,6 @@ def light_advect_mul(here, t_in, du, dv, impl: str | None = None):
     out = torch.empty_like(here)
     build.launch("mv_light_advect_mul", here.data_ptr(), t_in.data_ptr(),
                  du.data_ptr(), dv.data_ptr(), out.data_ptr(), c, l,
-                 torch.cuda.current_stream(here.device).cuda_stream)
+                 device=here.device)
     ops.count_launch("light_advect_mul")
     return out

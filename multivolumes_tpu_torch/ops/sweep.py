@@ -212,7 +212,6 @@ def sweep_march(volumes, light, vol_tex_ids, eye_faces, params, smp_count,
         face_flt.data_ptr(), s_in.data_ptr(), s_end.data_ptr(),
         f_corr.data_ptr(), alive.data_ptr(), out.data_ptr(), b, size,
         num_planes, nv, nl,
-        int(volumes.dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream)
+        int(volumes.dtype == torch.bfloat16), device=dev)
     ops.count_launch("sweep")
     return out.reshape(n, 6, 4, size, size)

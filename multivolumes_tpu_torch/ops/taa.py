@@ -1,8 +1,13 @@
-"""The fused TAA resolve (B5).
+"""The fused TAA resolve (B5) and its row-band form (B5').
 
-Hand kernel: `csrc/taa.cu`. It replaces the TPU kernel
+Hand kernels: `csrc/taa.cu`. B5 replaces the TPU kernel
 `multivolumes_tpu/ops/pallas/taa_kernel.py::taa_resolve` (through
-`_resolve_bands`). The plain version below follows the semantics twin
+`_resolve_bands`); B5' (`taa_resolve_band`, `taa_resolve_sharded`)
+replaces `::taa_resolve_sharded`, the same resolve on one band of pixel
+rows per device of a mesh's "rows" axis, whose only cross-device traffic
+is a one-row halo of the current frame.
+
+The plain version below follows the semantics twin
 `multivolumes_tpu/render/taa.py::_temporal_aa_jnp` operation for
 operation (a port of `CSTemporalAA.hlsl:254-336`): per pixel, Reinhard in
 YCoCg over the edge-clamped 3x3 neighbourhood (cross weight 0.5, diagonal
@@ -13,6 +18,13 @@ display image `|x * 1.05 / (x + 0.7)| ** 1.25` of the resolved colour.
 
 The history reprojection is not part of it: callers pass the reprojected
 history and its `blur` field (`render/taa.py`).
+
+The TPU version builds three row-shifted copies of the whole frame with
+edge padding and pads the rows to a multiple of 16 x rows (Pallas block
+layout). Here a band reads its halo rows directly: `cur_halo` is the band
+with the row above and the row below it (`collectives.halo_rows`), and
+the bands are ceil(H / rows) rows high, the last one shorter. The fused
+tone map is not offered on this path, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -65,12 +77,40 @@ def shift_views(img):
             for dx in (-1, 0, 1) for dy in (-1, 0, 1)}
 
 
+def halo_views(cur_halo):
+    """(..., hb + 2, W) band with its halo rows -> the views of
+    `shift_views` for the band's hb rows: rows by slicing the halo,
+    columns edge-clamped."""
+    hb, w = cur_halo.shape[-2] - 2, cur_halo.shape[-1]
+    lead = cur_halo.shape[:-2]
+    pad = F.pad(cur_halo.reshape(-1, 1, hb + 2, w), (1, 1, 0, 0),
+                mode="replicate").reshape(*lead, hb + 2, w + 2)
+    return {(dx, dy): pad[..., 1 + dy:1 + dy + hb, 1 + dx:1 + dx + w]
+            for dx in (-1, 0, 1) for dy in (-1, 0, 1)}
+
+
 def taa_resolve_plain(cur, hist, blur, tonemap: bool = False):
     """Plain version of B5. cur (4, H, W) current rgba; hist (4, H, W)
     reprojected history; blur (H, W) the current history blur. Returns
     the new history (4, H, W), whose channels 0..2 are the resolved
     colour, and with `tonemap` also the display image (3, H, W)."""
-    cur, hist, blur = cur.float(), hist.float(), blur.float()
+    cur = cur.float()
+    return _resolve(cur, shift_views(cur), hist, blur, tonemap)
+
+
+def taa_resolve_band_plain(cur_halo, hist, blur):
+    """Plain version of B5'. cur_halo (4, hb + 2, W): a band of the
+    current frame with the row above and the row below; hist (4, hb, W),
+    blur (hb, W) the band's rows -> the band's new history (4, hb, W)."""
+    cur_halo = cur_halo.float()
+    return _resolve(cur_halo[:, 1:-1], halo_views(cur_halo), hist, blur,
+                    False)
+
+
+def _resolve(cur, views, hist, blur, tonemap: bool):
+    """The per-pixel resolve on `cur` (4, h, W) with its 8 neighbour
+    views (each (4, h, W))."""
+    hist, blur = hist.float(), blur.float()
     cr, cg_, cb, ca = cur
     history_blur = torch.maximum(1.0 - hist[3], blur)
     hist_w = hist[3] * HISTORY_MAX + 1.0
@@ -80,7 +120,6 @@ def taa_resolve_plain(cur, hist, blur, tonemap: bool = False):
     gamma = torch.where((history_blur > 0.0) | (ca < ALPHA_BOUND), 1.0, 16.0)
 
     # NeighborMinMax (`CSTemporalAA.hlsl:166-236`)
-    views = shift_views(cur)
     m1 = [cy, cco, ccg]
     m2 = [cy * cy, cco * cco, ccg * ccg]
     filt = [cy, cco, ccg]
@@ -164,6 +203,55 @@ def taa_resolve(cur, hist, blur, tonemap: bool = False,
     build.launch("mv_taa_resolve", cur.data_ptr(), hist.data_ptr(),
                  blur.data_ptr(), out.data_ptr(),
                  img.data_ptr() if tonemap else None, h, w,
-                 torch.cuda.current_stream(cur.device).cuda_stream)
+                 device=cur.device)
     ops.count_launch("taa")
     return (out, img) if tonemap else out
+
+
+def taa_resolve_band(cur_halo, hist, blur, impl: str | None = None):
+    """B5' wrapper: see `taa_resolve_band_plain`."""
+    if not ops.use_kernel(impl, cur_halo):
+        return taa_resolve_band_plain(cur_halo, hist, blur)
+    from multivolumes_tpu_torch.ops import build
+
+    _, hb, w = hist.shape
+    cur_halo, hist, blur = (x.float().contiguous()
+                            for x in (cur_halo, hist, blur))
+    for name, t in (("cur_halo", cur_halo), ("hist", hist), ("blur", blur)):
+        ops.check_cuda(t, name, torch.float32)
+    if cur_halo.shape != (4, hb + 2, w) or hist.shape != (4, hb, w) \
+            or blur.shape != (hb, w):
+        raise ValueError(f"bad shapes {cur_halo.shape} {hist.shape} "
+                         f"{blur.shape}")
+    out = torch.empty_like(hist)
+    build.launch("mv_taa_resolve_band", cur_halo.data_ptr(), hist.data_ptr(),
+                 blur.data_ptr(), out.data_ptr(), hb, w, device=hist.device)
+    ops.count_launch("taa_band")
+    return out
+
+
+def row_bands(height: int, rows: int):
+    """[(y0, y1), ...]: bands of ceil(height / rows) rows, the last one
+    shorter; fewer than `rows` bands when the height runs out."""
+    hb = -(-height // rows)
+    return [(y0, min(y0 + hb, height)) for y0 in range(0, height, hb)]
+
+
+def taa_resolve_sharded(mesh, cur, hist, blur, impl: str | None = None):
+    """B5' over a device mesh with a "rows" axis: cur (4, H, W), hist
+    (4, H, W), blur (H, W) -> the new history (4, H, W) on `mesh.root`.
+    One band launch per row index, on that index's device, the halo rows
+    through `collectives.halo_rows`. Equal to `taa_resolve` on the whole
+    image bit for bit."""
+    from multivolumes_tpu_torch.parallel import collectives
+
+    bands = row_bands(cur.shape[1], mesh.rows)
+    halos = collectives.halo_rows([cur[:, y0:y1] for y0, y1 in bands], mesh)
+    outs = []
+    for (y0, y1), cur_halo in zip(bands, halos):
+        dev = cur_halo.device
+        outs.append(taa_resolve_band(
+            cur_halo, collectives.to_device(hist[:, y0:y1], dev),
+            collectives.to_device(blur[y0:y1], dev), impl=impl))
+    return collectives.all_gather(outs, 1, mesh, "taa_rows",
+                                  devices=(mesh.root,))[mesh.root]

@@ -16,6 +16,12 @@ the volumes, and its velocity reprojects the TAA history.
 PyTorch runs eagerly, so there is no jit boundary; the frame reads no
 device value on the host except where the composite prep checks the swap
 flags. The light stacks of `state` are updated in place.
+
+With a device mesh (`render_frame(..., mesh=mesh)`, the state a
+`parallel.sharding.ShardedState`) the same passes run as the sharded
+frame step: the sweep split over the mesh's volume axis, the composite
+and the TAA resolve over its row axis where it has one, everything else
+replicated, once per physical device (`_render_frame_sharded`).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from multivolumes_tpu_torch.core.camera import Camera
 from multivolumes_tpu_torch.render import cull as cull_lib
 from multivolumes_tpu_torch.render import lightsweep, postprocess
 from multivolumes_tpu_torch.render import mesh as mesh_lib
+from multivolumes_tpu_torch.ops import taa as taa_ops
 from multivolumes_tpu_torch.render import taa as taa_lib
 from multivolumes_tpu_torch.render import tilecast
 from multivolumes_tpu_torch.render import sweep as sweep_lib
@@ -44,12 +51,10 @@ class FrameOutput(NamedTuple):
     state: SceneState
 
 
-def check_supported(config: RenderConfig, mesh=None) -> None:
+def check_supported(config: RenderConfig) -> None:
     """Raise for the settings whose passes are not ported yet (each is a
     queue entry in ROADMAP.md)."""
     missing = []
-    if mesh is not None:
-        missing.append("multi-device sharding")
     if config.march_mode != "sweep" or config.light_mode != "sweep":
         missing.append("the reference march twins (march_mode/light_mode "
                     "'reference')")
@@ -76,11 +81,16 @@ def render_frame(state: SceneState, camera: Camera, config: RenderConfig,
     image and hdr channel-leading, the image tone-mapped inside the TAA
     resolve. `impl` forces the kernels' side (see `ops`); `timer`, if
     given, is called with each pass name as the pass starts and with None
-    at the end."""
-    check_supported(config, mesh)
+    at the end. With `mesh` (a `parallel.collectives.DeviceMesh`), `state`
+    is a `ShardedState` on that mesh and so is the returned state; the
+    image and hdr are assembled on `mesh.root`."""
+    check_supported(config)
     width, height = config.width, config.height
     mark = timer if timer is not None else (lambda name: None)
     show_mesh = config.show_mesh if show_mesh is None else show_mesh
+    if mesh is not None:
+        return _render_frame_sharded(state, camera, config, mesh, show_mesh,
+                                     use_taa, planar, impl, mark)
     has_mesh = bool(show_mesh and state.mesh_indices.shape[0] > 1)
 
     mark("prep")
@@ -103,9 +113,7 @@ def render_frame(state: SceneState, camera: Camera, config: RenderConfig,
 
     # --- light: refresh one cohort round-robin (config.light_refresh) ----
     mark("light")
-    n = config.num_volumes
-    c = n if config.light_refresh <= 0 else min(config.light_refresh, n)
-    ids = (state.frame_idx * c + torch.arange(c, device=dev)) % n
+    ids = _cohort(config, state.frame_idx, dev)
     axis = (config.light_axis if config.light_axis is not None
             else lightsweep.light_axis(state.light_pos))
     maps_c, light_sout = lightsweep.ray_march_light_sweep_update(
@@ -139,11 +147,7 @@ def render_frame(state: SceneState, camera: Camera, config: RenderConfig,
 
     # --- OIT composite over the background ------------------------------
     mark("composite")
-    cs = config.composite_scale if not has_mesh else 1
-    if cs > 1 and width % cs == 0 and height % cs == 0:
-        cw, ch = width // cs, height // cs
-    else:
-        cw, ch = width, height
+    cw, ch = _composite_size(config, has_mesh)
     vr, vg, vb, va = tilecast.composite_oit_tile(
         swept.cube_maps, per_object, cull_for_composite, eye,
         screen_to_world, cw, ch, num_layers=config.oit_layers,
@@ -151,50 +155,12 @@ def render_frame(state: SceneState, camera: Camera, config: RenderConfig,
         impl=impl)
 
     mark("tail")
-    if (cw, ch) != (width, height):
-        mu = postprocess._upsample_matrix(width, cw, dev)
-        mv = postprocess._upsample_matrix(height, ch, dev)
-        vr, vg, vb, va = (mv @ x @ mu.T for x in (vr, vg, vb, va))
-    t = 1.0 - va
-    if has_mesh:
-        # the mesh is the opaque background (alpha 1), the sky elsewhere
-        valid = mesh_out.valid
-        bg_r, bg_g, bg_b = (torch.where(valid, c, b) for c, b in zip(
-            mesh_out.color, (bg_r, bg_g, bg_b)))
-        sc_a = va + t * valid.float()
-    else:
-        sc_a = va  # the sky has alpha 0
-    sc = (vr + t * bg_r, vg + t * bg_g, vb + t * bg_b, sc_a)
+    sc = _blend_background((vr, vg, vb, va), (bg_r, bg_g, bg_b), width,
+                           height, mesh_out)
 
-    # --- TAA (the mesh is the one velocity writer) + tone map ------------
-    image = None
-    if use_taa:
-        mark("taa")
-        # the windowed reprojection only under the far preset, whose host
-        # pick keeps the mesh inside raster_far_bound, and only when the
-        # window covers the pick's 1.05x hysteresis ceiling plus the
-        # velocity dilation; else the whole screen
-        reproj_ok = (mesh_lib.far_preset(config)
-                     and config.taa_reproj_window
-                     >= mesh_lib.far_ceiling(config) + 16)
-        taa_out = taa_lib.temporal_aa(
-            sc, state.taa_history,
-            mesh_out.velocity if has_mesh else None,
-            tonemap_out=planar, impl=impl,
-            reproj_center=mesh_out.screen_center if has_mesh else None,
-            reproj_window=config.taa_reproj_window if reproj_ok else 0)
-        if planar:
-            (rr, rg, rb), new_history, image = taa_out
-        else:
-            (rr, rg, rb), new_history = taa_out
-    else:
-        rr, rg, rb = sc[:3]
-        new_history = state.taa_history
-    mark("tonemap")
-    ax = 0 if planar else -1
-    if image is None:
-        image = torch.stack(postprocess.tone_map_ch(rr, rg, rb), dim=ax)
-    hdr = torch.stack(sc, dim=ax)
+    image, hdr, new_history = _resolve_and_map(
+        sc, state.taa_history, config, use_taa, planar, impl, mark,
+        mesh_out=mesh_out)
     mark(None)
 
     new_state = dataclasses.replace(
@@ -205,16 +171,264 @@ def render_frame(state: SceneState, camera: Camera, config: RenderConfig,
     return FrameOutput(image=image, hdr=hdr, state=new_state)
 
 
+def _cohort(config: RenderConfig, frame_idx: int, device=None):
+    """Volume ids whose light maps this frame refreshes (round-robin,
+    `config.light_refresh` per frame; all of them when it is <= 0): a
+    tensor made on `device`, or a host list without one."""
+    n = config.num_volumes
+    c = n if config.light_refresh <= 0 else min(config.light_refresh, n)
+    if device is None:
+        return [(frame_idx * c + i) % n for i in range(c)]
+    return (frame_idx * c + torch.arange(c, device=device)) % n
+
+
+def _composite_size(config: RenderConfig, has_mesh: bool):
+    """(width, height) the composite runs at (`config.composite_scale`)."""
+    width, height = config.width, config.height
+    cs = config.composite_scale if not has_mesh else 1
+    if cs > 1 and width % cs == 0 and height % cs == 0:
+        return width // cs, height // cs
+    return width, height
+
+
+def _blend_background(volumes, sky, width: int, height: int, mesh_out=None):
+    """Composite (r, g, b, a) over the sky, or over the opaque mesh where
+    it covers -> scene (r, g, b, a) at (height, width)."""
+    vr, vg, vb, va = volumes
+    bg_r, bg_g, bg_b = sky
+    ch, cw = va.shape
+    if (cw, ch) != (width, height):
+        mu = postprocess._upsample_matrix(width, cw, va.device)
+        mv = postprocess._upsample_matrix(height, ch, va.device)
+        vr, vg, vb, va = (mv @ x @ mu.T for x in (vr, vg, vb, va))
+    t = 1.0 - va
+    if mesh_out is not None:
+        # the mesh is the opaque background (alpha 1), the sky elsewhere
+        valid = mesh_out.valid
+        bg_r, bg_g, bg_b = (torch.where(valid, c, b) for c, b in zip(
+            mesh_out.color, (bg_r, bg_g, bg_b)))
+        sc_a = va + t * valid.float()
+    else:
+        sc_a = va  # the sky has alpha 0
+    return (vr + t * bg_r, vg + t * bg_g, vb + t * bg_b, sc_a)
+
+
+def _resolve_and_map(sc, history, config: RenderConfig, use_taa: bool,
+                     planar: bool, impl, mark, mesh_out=None,
+                     device_mesh=None):
+    """TAA (the mesh is the one velocity writer) and the tone map ->
+    (image, hdr, new history). With a `device_mesh` the tone map is its
+    own pass, as in the JAX package, and where the mesh has a rows axis
+    the resolve runs in row bands."""
+    has_mesh = mesh_out is not None
+    image = None
+    if use_taa:
+        mark("taa")
+        # the windowed reprojection only under the far preset, whose host
+        # pick keeps the mesh inside raster_far_bound, and only when the
+        # window covers the pick's 1.05x hysteresis ceiling plus the
+        # velocity dilation; else the whole screen
+        reproj_ok = (mesh_lib.far_preset(config)
+                     and config.taa_reproj_window
+                     >= mesh_lib.far_ceiling(config) + 16)
+        fuse_tm = planar and device_mesh is None
+        taa_out = taa_lib.temporal_aa(
+            sc, history,
+            mesh_out.velocity if has_mesh else None,
+            tonemap_out=fuse_tm, impl=impl,
+            reproj_center=mesh_out.screen_center if has_mesh else None,
+            reproj_window=config.taa_reproj_window if reproj_ok else 0,
+            device_mesh=device_mesh)
+        if fuse_tm:
+            (rr, rg, rb), new_history, image = taa_out
+        else:
+            (rr, rg, rb), new_history = taa_out
+    else:
+        rr, rg, rb = sc[:3]
+        new_history = history
+    mark("tonemap")
+    ax = 0 if planar else -1
+    if image is None:
+        image = torch.stack(postprocess.tone_map_ch(rr, rg, rb), dim=ax)
+    return image, torch.stack(sc, dim=ax), new_history
+
+
+def _render_frame_sharded(sharded, camera: Camera, config: RenderConfig,
+                          mesh, show_mesh: bool, use_taa: bool, planar: bool,
+                          impl, mark) -> FrameOutput:
+    """The sharded frame step (counterpart of the JAX package's
+    `render_frame(..., mesh=mesh)` under GSPMD, stated explicitly):
+
+    * prep, cull and the light refresh run replicated, once per physical
+      device, on the all-gathered world matrices; the refresh writes a
+      replicated light stack once per physical device (logical shards of
+      one device alias it), and under `shard_light_stacks` only the owner
+      shard of each cohort volume writes its local row;
+    * the sweep runs per index of the volume axis, and its cube maps are
+      all-gathered (the one large movement of the frame);
+    * without a rows axis the screen passes (sky, composite, tail, TAA,
+      tone map) run replicated too; with one, the composite and the TAA
+      resolve run one row band per device and the rest on `mesh.root`.
+    """
+    from multivolumes_tpu_torch.parallel import collectives as coll
+
+    width, height = config.width, config.height
+    nd, rows = mesh.n_volumes_axis, mesh.rows
+    has_rows = "rows" in mesh.axis_names
+    root = mesh.root
+    if sharded.shard_light != config.shard_light_stacks:
+        raise ValueError(
+            f"the state was sharded with shard_light={sharded.shard_light} "
+            f"but config.shard_light_stacks={config.shard_light_stacks}")
+    if show_mesh and sharded.local(0, 0).mesh_indices.shape[0] > 1:
+        raise NotImplementedError(
+            "an opaque mesh under a device mesh is not ported to "
+            "multivolumes_tpu_torch yet: the row-decomposed raster and "
+            "shade (multivolumes_tpu/render/mesh.py:270, 742-759, 858; see "
+            "ROADMAP.md)")
+    # the shards each physical device hosts: {device: {d: local state}}
+    hosted = {}
+    for r in range(rows):
+        for d in range(nd):
+            hosted.setdefault(mesh.device(r, d), {}).setdefault(
+                d, sharded.local(r, d))
+    rep = {dev: next(iter(shards.values())) for dev, shards in hosted.items()}
+    by_d = [sharded.local(0, d) for d in range(nd)]
+    frame_idx = sharded.frame_idx
+
+    mark("prep")
+    cam = coll.broadcast((camera.eye, camera.view_proj,
+                          camera.screen_to_world), mesh, "camera")
+    eye = {dev: c[0] for dev, c in cam.items()}
+    screen_to_world = {dev: c[2] for dev, c in cam.items()}
+    worlds = coll.all_gather([s.volume_worlds for s in by_d], 0, mesh,
+                             "volume_worlds")
+    tex_ids = coll.all_gather([s.vol_tex_ids for s in by_d], 0, mesh,
+                              "vol_tex_ids")
+    per_object = {dev: build_per_object(worlds[dev], cam[dev][1])
+                  for dev in mesh.physical}
+    cull = {dev: cull_lib.cull_volumes(
+        per_object[dev], eye[dev], [width, height], config.max_ray_samples,
+        config.cube_map_size, config.num_cube_mips,
+        adaptive=config.adaptive_raymarch) for dev in mesh.physical}
+
+    mark("light")
+    ids_host = _cohort(config, frame_idx)
+    nl = config.num_volumes // nd
+    axis = (config.light_axis if config.light_axis is not None
+            else lightsweep.light_axis(rep[root].light_pos))
+    shard_light = sharded.shard_light
+    if shard_light:
+        sout_all = coll.all_gather([s.light_sout for s in by_d], 0, mesh,
+                                   "light_sout")
+    for dev in mesh.physical:
+        st = rep[dev]
+        ids = _cohort(config, frame_idx, dev)
+        maps_c, sout = lightsweep.ray_march_light_sweep_update(
+            st.rho_light, st.ao_static, st.grad_dir, tex_ids[dev],
+            per_object[dev], st.light_pos, st.light_color, st.ambient,
+            st.sh_coeffs, config.max_light_samples, axis,
+            has_light_probe=config.has_light_probe, sub_ids=ids,
+            sout_cache=sout_all[dev] if shard_light else st.light_sout,
+            impl=impl)
+        if not shard_light:
+            st.light_maps[ids] = maps_c.to(st.light_maps.dtype)
+            st.light_sweep[ids] = to_light_sweep(maps_c,
+                                                 st.light_sweep.dtype)
+            continue
+        for d, loc in hosted[dev].items():
+            own = [i for i, v in enumerate(ids_host) if v // nl == d]
+            if not own:
+                continue
+            pick = torch.tensor(own, device=dev)
+            at = ids[pick] - d * nl
+            loc.light_maps[at] = maps_c[pick].to(loc.light_maps.dtype)
+            loc.light_sweep[at] = to_light_sweep(maps_c[pick],
+                                                 loc.light_sweep.dtype)
+            loc.light_sout[at] = sout[ids[pick]]
+
+    mark("sweep")
+    swap_basis = {dev: warp_lib.screen_basis(screen_to_world[dev], eye[dev])
+                  for dev in mesh.physical}
+    lod_cull = {dev: c._replace(use_cube_map=c.visible)
+                for dev, c in cull.items()}
+    swept = sweep_lib.ray_march_view_sweep_lod_sharded(
+        mesh, {dev: st.volumes_sweep for dev, st in rep.items()},
+        [s.vol_tex_ids for s in by_d],
+        ([s.light_sweep for s in by_d] if shard_light
+         else {dev: st.light_sweep for dev, st in rep.items()}),
+        per_object, lod_cull, eye, config.cube_map_size, swap_basis,
+        bucket_caps=config.lod_bucket_caps,
+        vol_zmax={dev: st.vol_zmax for dev, st in rep.items()}, impl=impl,
+        light_sharded=shard_light)
+    cull_c = {dev: c._replace(mip_level=swept[dev].mips,
+                              use_cube_map=c.visible)
+              for dev, c in cull.items()}
+
+    cw, ch = _composite_size(config, False)
+    new_history = {}
+    # the screen passes: replicated without a rows axis, else on the root
+    for dev in ((root,) if has_rows else mesh.physical):
+        mark("sky")
+        sky = postprocess.render_environment(
+            rep[dev].radiance, screen_to_world[dev], eye[dev], width, height,
+            scale=config.sky_scale)
+        mark("composite")
+        if has_rows:
+            volumes = tilecast.composite_oit_tile_sharded(
+                mesh, {k: v.cube_maps for k, v in swept.items()}, per_object,
+                cull_c, eye, screen_to_world, cw, ch,
+                num_layers=config.oit_layers,
+                order={k: v.order for k, v in swept.items()},
+                swap_sorted={k: v.swap for k, v in swept.items()}, impl=impl)
+            history = coll.all_gather(
+                [sharded.local(r, 0).taa_history for r in range(rows)], 1,
+                mesh, "taa_history", devices=(root,))[root]
+        else:
+            volumes = tilecast.composite_oit_tile(
+                swept[dev].cube_maps, per_object[dev], cull_c[dev], eye[dev],
+                screen_to_world[dev], cw, ch, num_layers=config.oit_layers,
+                order=swept[dev].order, swap_sorted=swept[dev].swap,
+                impl=impl)
+            history = rep[dev].taa_history
+        mark("tail")
+        sc = _blend_background(volumes, sky, width, height)
+        out = _resolve_and_map(sc, history, config, use_taa, planar, impl,
+                               mark, device_mesh=mesh)
+        new_history[dev] = out[2]
+        if dev == root:
+            image, hdr = out[:2]
+    mark(None)
+
+    bands = taa_ops.row_bands(height, rows)
+    locals_ = []
+    for r in range(rows):
+        for d in range(nd):
+            dev = mesh.device(r, d)
+            if has_rows:
+                y0, y1 = bands[r]
+                hist = coll.to_device(new_history[root][:, y0:y1], dev)
+            else:
+                hist = new_history[dev]
+            locals_.append(dataclasses.replace(
+                sharded.local(r, d), frame_idx=frame_idx + 1,
+                taa_history=hist))
+    return FrameOutput(image=image, hdr=hdr,
+                       state=dataclasses.replace(sharded,
+                                                 locals=tuple(locals_)))
+
+
 def render_frames(state: SceneState, cameras: Sequence[Camera],
                   config: RenderConfig, use_taa: bool = True,
-                  show_mesh: Optional[bool] = None):
+                  show_mesh: Optional[bool] = None, mesh=None):
     """Render K frames, one per camera, carrying the state from each to
     the next exactly as K `render_frame` calls do. Returns ((K, 3, H, W)
-    planar display images, the advanced state)."""
+    planar display images, the advanced state). `mesh`: see
+    `render_frame`."""
     images = []
     for camera in cameras:
         out = render_frame(state, camera, config, show_mesh=show_mesh,
-                           use_taa=use_taa, planar=True)
+                           use_taa=use_taa, planar=True, mesh=mesh)
         images.append(out.image)
         state = out.state
     return torch.stack(images, 0), state

@@ -3,8 +3,10 @@
 Counterpart of the main-path parts of `multivolumes_tpu/render/sweep.py`
 (`eye_to_face_frames`, `face_ray_params`, `lod_partition`,
 `ray_march_view_sweep_lod` with sorted_output=True, pack=False and
-swap_basis). The per-(volume, face) march itself is kernel B1
-(`ops/sweep.py`); this module does the per-frame geometry around it:
+swap_basis, and `ray_march_view_sweep_lod_sharded`, the same march split
+over the volume axis of a device mesh). The per-(volume, face) march
+itself is kernel B1 (`ops/sweep.py`); this module does the per-frame
+geometry around it:
 face frames, ray intervals, LOD buckets, the sorted assembly and the
 Catmull-Smith pre-swap of each face for the tile composite. With a scene
 depth map (the opaque mesh), each ray also ends where the scene occludes
@@ -343,3 +345,60 @@ def ray_march_view_sweep_lod(
         color[b0:b0 + count, :, :, :size_b, :size_b] = out_b
     return SortedSweep(CubeMaps(color=color, depth=cube_depth), mips, order,
                        swap)
+
+
+def ray_march_view_sweep_lod_sharded(
+    mesh,               # parallel.collectives.DeviceMesh
+    volumes_sweep,      # replicated {device: (N_src, D, H, W, 4)}
+    vol_tex_ids,        # volume-sharded: [d] -> (N / D,) on mesh.device(0, d)
+    light_sweep,        # replicated {device: (N, L, L, L, 4)}, or with
+                        # light_sharded the shards [d] -> (N / D, L, L, L, 4)
+    per_object,         # replicated {device: PerObject}, all N rows
+    cull,               # replicated {device: CullResult}, all N rows
+    eye,                # replicated {device: (3,)}
+    cube_map_size: int,
+    swap_basis,         # replicated {device: (3, 3)}
+    bucket_caps=(8, 24, 1 << 30),
+    vol_zmax=None,      # replicated, or None
+    impl: str | None = None,
+    light_sharded: bool = False,
+) -> dict:
+    """The LOD sweep partitioned over the mesh's volume axis: shard d
+    LOD-buckets and marches its own N / D volumes on `mesh.device(0, d)`
+    (kernel B1 launches there) with the bucket caps divided by D, the
+    per-device reading of the capacity limits; the shards' cube maps,
+    mips, orders and swap flags are then all-gathered, in shard order,
+    onto every physical device -> replicated {device: SortedSweep}. Local
+    sorted row j of shard d is global volume d N / D + order[j], so the
+    gathered order is a permutation of 0..N-1. The source volumes stay
+    replicated; the light stacks are replicated (each shard reads its
+    slice) or, with `light_sharded`, sharded (each shard reads its own
+    shard, so no stack ever moves)."""
+    from multivolumes_tpu_torch.parallel import collectives
+
+    nd = mesh.n_volumes_axis
+    nl = vol_tex_ids[0].shape[0]
+    n = nl * nd
+    caps = tuple(c if c >= (1 << 20) else max(1, c // nd)
+                 for c in bucket_caps)
+    parts = []
+    for d in range(nd):
+        dev = mesh.device(0, d)
+        n_rows = per_object[dev].world.shape[0]
+        assert n_rows == n and n % nd == 0, (n_rows, n, nd)
+        rows = slice(d * nl, (d + 1) * nl)
+        out = ray_march_view_sweep_lod(
+            volumes_sweep[dev], vol_tex_ids[d],
+            light_sweep[d] if light_sharded else light_sweep[dev][rows],
+            per_object[dev].take(rows), cull[dev].take(rows), eye[dev],
+            cube_map_size, swap_basis[dev], bucket_caps=caps,
+            vol_zmax=None if vol_zmax is None else vol_zmax[dev], impl=impl)
+        parts.append((out.cube_maps.color, out.mips, out.order + d * nl,
+                      out.swap))
+    color, mips, order, swap = (
+        collectives.all_gather(col, 0, mesh, name) for col, name in zip(
+            zip(*parts), ("cube_maps", "sweep_mips", "sweep_order",
+                          "sweep_swap")))
+    return {dev: SortedSweep(CubeMaps(color=color[dev], depth=None),
+                             mips[dev], order[dev], swap[dev])
+            for dev in mesh.physical}

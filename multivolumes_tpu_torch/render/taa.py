@@ -98,14 +98,21 @@ def reproject_window(history, velocity, center, win: int):
 
 def temporal_aa(current, history, velocity, tonemap_out: bool = False,
                 impl: str | None = None, reproj_center=None,
-                reproj_window: int = 0):
+                reproj_window: int = 0, device_mesh=None):
     """current: (r, g, b, a) fields ((H, W) each; a < 1 marks
     transparency); history: (4, H, W) previous output + metadata;
     velocity: (vx, vy) fields, or None when nothing writes velocity;
     reproj_center (cx, cy) and 0 < reproj_window < min(H, W) restrict the
     reprojection to that window. Returns ((r, g, b) resolved, new history
     (4, H, W)), and the display image (3, H, W) as a third element when
-    `tonemap_out`."""
+    `tonemap_out`. With a `device_mesh` that has a "rows" axis, the
+    reprojection runs on the whole (gathered) history and the resolve
+    runs one row band per device (kernel B5'); the fused tone map is not
+    offered there."""
+    rows_mesh = device_mesh is not None and "rows" in device_mesh.axis_names
+    if rows_mesh and tonemap_out:
+        raise ValueError("the fused tone map is not offered on a mesh with "
+                         "a rows axis: tone-map the resolved colour")
     cur = torch.stack([x.float() for x in current], 0)
     h, w = cur.shape[1:]
     if velocity is None:
@@ -116,6 +123,10 @@ def temporal_aa(current, history, velocity, tonemap_out: bool = False,
                                       reproj_window)
     else:
         hist, blur = reproject(history, velocity)
+    if rows_mesh:
+        out = taa_ops.taa_resolve_sharded(device_mesh, cur, hist, blur,
+                                          impl=impl)
+        return tuple(out[:3]), out
     out = taa_ops.taa_resolve(cur, hist, blur, tonemap=tonemap_out,
                               impl=impl)
     if tonemap_out:

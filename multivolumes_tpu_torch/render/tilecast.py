@@ -1,8 +1,8 @@
 """Per-frame geometry for the screen-tile OIT composite (kernel B2).
 
 Counterpart of `multivolumes_tpu/render/tilecast.py` (`tile_dims`,
-`_tile_prep`, `composite_oit_tile`): the per-volume homographies, the
-Catmull-Smith orientation per face, the per-tile volume lists and the
+`_tile_prep`, `composite_oit_tile`, `composite_oit_tile_sharded`): the
+per-volume homographies, the Catmull-Smith orientation per face, the per-tile volume lists and the
 padded scene depth, handed to `ops/composite.py`. With a scene depth map
 (the opaque mesh) the cube depth planes ride along as `depth_sel`, and
 the composite weights its taps by depth (kernel B2's depth variant).
@@ -36,14 +36,15 @@ def tile_dims(width: int, height: int):
 def _tile_prep(cube_maps: CubeMaps, per_object: PerObject, cull: CullResult,
                eye, screen_to_world, width: int, height: int,
                num_layers: int = 8, order=None, swap_sorted=None,
-               depth_map=None):
+               depth_map=None, rows_mult: int = 1):
     """Kernel operands of one frame -> (color, depth_sel, scene, tlist,
     counts, vol_flt, face_flt, s, th, tw, tiles_x, k_layers).
 
     `depth_map` (H, W): the scene clip depth (the mesh); the padded scene
     plane is 1 without it. `depth_sel` (N, 6, S, S) is the cube depth in
     view distance, swapped like the faces, when both a scene depth and
-    cube depth maps exist; else None.
+    cube depth maps exist; else None. `rows_mult` pads the tile rows to
+    that multiple, so a mesh's row axis cuts even bands of tile rows.
 
     `order` (N,): the cube-map rows are in this sorted volume order (the
     LOD sweep's output); every per-volume tensor is permuted to match.
@@ -111,6 +112,7 @@ def _tile_prep(cube_maps: CubeMaps, per_object: PerObject, cull: CullResult,
 
     # per-tile volume lists (projected-bbox culled, capacity N)
     th, tw, hp, wp = tile_dims(width, height)
+    hp = _ceil_to(hp, th * rows_mult)
     tiles_x, tiles_y = wp // tw, hp // th
     corners = torch.tensor(
         [[x, y, z] for x in (-1.0, 1.0) for y in (-1.0, 1.0)
@@ -163,5 +165,46 @@ def composite_oit_tile(cube_maps: CubeMaps, per_object: PerObject,
     out = tile_composite(color_sel, scene, tlist, counts, vol_flt, face_flt,
                          th, tw, tiles_x, k_layers, width, height,
                          depth_sel=depth_sel, impl=impl)
+    out = out[:, :height, :width]
+    return out[0], out[1], out[2], out[3]
+
+
+def composite_oit_tile_sharded(mesh, cube_maps, per_object, cull, eye,
+                               screen_to_world, width: int, height: int,
+                               num_layers: int, order=None, swap_sorted=None,
+                               depth_map=None, impl: str | None = None):
+    """Row-sharded OIT composite: one launch of kernel B2 per index of the
+    mesh's "rows" axis, on that index's device, each on a contiguous band
+    of tile rows -> (r, g, b, a) fields on `mesh.root`. Every tensor
+    argument is a replicated dict {device: value} (the cube maps after
+    their all-gather); the per-tile prep runs replicated, once per
+    physical device, so the only sharded operands are the band's tile
+    lists, scene depth and output."""
+    from multivolumes_tpu_torch.parallel import collectives
+
+    rows = mesh.rows
+    preps = {}
+    bands = []
+    for r in range(rows):
+        dev = mesh.device(r, 0)
+        if dev not in preps:
+            preps[dev] = _tile_prep(
+                cube_maps[dev], per_object[dev], cull[dev], eye[dev],
+                screen_to_world[dev], width, height, num_layers=num_layers,
+                order=None if order is None else order[dev],
+                swap_sorted=None if swap_sorted is None else swap_sorted[dev],
+                depth_map=None if depth_map is None else depth_map[dev],
+                rows_mult=rows)
+        (color_sel, depth_sel, scene, tlist, counts, vol_flt, face_flt, _s,
+         th, tw, tiles_x, k_layers) = preps[dev]
+        ty_local = (scene.shape[0] // th) // rows
+        t0, t1 = r * ty_local * tiles_x, (r + 1) * ty_local * tiles_x
+        bands.append(tile_composite(
+            color_sel, scene[r * ty_local * th:(r + 1) * ty_local * th],
+            tlist[t0:t1], counts[t0:t1], vol_flt, face_flt, th, tw, tiles_x,
+            k_layers, width, height, depth_sel=depth_sel, impl=impl,
+            tile_row0=r * ty_local))
+    out = collectives.all_gather(bands, 1, mesh, "composite_rows",
+                                 devices=(mesh.root,))[mesh.root]
     out = out[:, :height, :width]
     return out[0], out[1], out[2], out[3]

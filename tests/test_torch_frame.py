@@ -125,7 +125,8 @@ def test_engine_renders_with_baked_axis():
     dict(config=dict(composite_mode="warp")),
     dict(config=dict(march_mode="reference")),
     dict(config=dict(composite_mode="gather")),
-    dict(config=dict(point_light=True)), dict(mesh=object())])
+    dict(config=dict(point_light=True)),
+    dict(config=dict(adaptive_raymarch=False))])
 def test_unported_settings_raise(change):
     cfg = port_config(CONFIGS["f32"].with_(**change.pop("config", {})))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

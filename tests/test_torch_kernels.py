@@ -19,12 +19,14 @@ from multivolumes_tpu_torch.config import RenderConfig
 from multivolumes_tpu_torch.core import camera as cam_lib
 from multivolumes_tpu_torch.engine import MultiRayCaster
 from multivolumes_tpu_torch.ops import lightsweep as light_ops
+from multivolumes_tpu_torch.ops import raster_bin
 from multivolumes_tpu_torch.ops import sweep as sweep_ops
 from multivolumes_tpu_torch.ops import taa as taa_ops
 from multivolumes_tpu_torch.render import frame as frame_lib
 from multivolumes_tpu_torch.render import sweep as sweep_lib
 from multivolumes_tpu_torch.render import tilecast
 from multivolumes_tpu_torch.scene import state as state_lib
+from multivolumes_tpu_torch.tools.raster_bin_microbench import eval_inputs
 
 SMALL = RenderConfig(width=160, height=96, grid_size=16, light_grid_size=8,
                      max_ray_samples=24, max_light_samples=8, num_volumes=10,
@@ -93,6 +95,14 @@ def test_dispatch_rule_on_cpu():
         sweep_ops.sweep_march(*args, **kw, impl="kernel")
     with pytest.raises(ValueError, match="CUDA"):
         taa_ops.taa_resolve(*taa_operands("cpu", 8, 8), impl="kernel")
+    cur, hist, blur = taa_operands("cpu", 8, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        taa_ops.taa_resolve_band(cur, hist[:, 1:-1], blur[1:-1],
+                                 impl="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        raster_bin.raster_bin_eval(*eval_inputs(2, 2, "cpu"), 2,
+                                   impl="kernel")
+    assert all(v == 0 for v in ops.LAUNCHES.values())
 
 
 @pytest.mark.cuda
@@ -109,6 +119,41 @@ def test_b5_kernel_matches_plain_on_card():
         torch.testing.assert_close(
             taa_ops.taa_resolve(cur, hist, blur, impl="kernel"), out_k,
             atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_b5_band_kernel_matches_plain_on_card():
+    """B5': a band with its halo rows equals the plain version, and the
+    bands of a mesh's rows equal B5 on the whole image bit for bit."""
+    from multivolumes_tpu_torch.parallel import sharding
+
+    dev = cuda_device()
+    for h, w, rows in ((72, 200, 3), (50, 100, 2), (800, 1280, 2)):
+        cur, hist, blur = taa_operands(dev, h, w)
+        whole = taa_ops.taa_resolve(cur, hist, blur, impl="kernel")
+        mesh = sharding.make_mesh([dev] * rows, rows=rows)
+        ops.reset_launches()
+        got = taa_ops.taa_resolve_sharded(mesh, cur, hist, blur,
+                                          impl="kernel")
+        assert ops.LAUNCHES["taa_band"] == rows
+        torch.testing.assert_close(got, whole, atol=0, rtol=0)
+        torch.testing.assert_close(
+            got, taa_ops.taa_resolve_sharded(mesh, cur, hist, blur,
+                                             impl="plain"),
+            atol=2e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_b6_kernel_matches_plain_on_card():
+    dev = cuda_device()
+    for n_c, n_t in ((8, 3), (600, 150)):
+        operands = eval_inputs(n_c, n_t, dev)
+        ops.reset_launches()
+        got = raster_bin.raster_bin_eval(*operands, n_t, impl="kernel")
+        assert ops.LAUNCHES["raster_bin_eval"] == 1
+        want = raster_bin.raster_bin_eval(*operands, n_t, impl="plain")
+        assert torch.equal(got, want)
+        assert int((got != raster_bin.EMPTY).sum()) > 0
 
 
 @pytest.mark.cuda
@@ -224,6 +269,16 @@ def test_b2_kernel_matches_plain_on_card():
     got = orig(*a, **k, impl="kernel")
     want = orig(*a, **k, impl="plain")
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    # a band of tile rows (`tile_row0`): the lower tile row of two
+    (color, scene, tlist, counts, vol_flt, face_flt, th, tw, tiles_x, kl,
+     width, height) = a
+    assert scene.shape[0] == 2 * th
+    ops.reset_launches()
+    band = orig(color, scene[th:], tlist[tiles_x:], counts[tiles_x:],
+                vol_flt, face_flt, th, tw, tiles_x, kl, width, height,
+                tile_row0=1, impl="kernel")
+    assert ops.LAUNCHES["composite_band"] == 1
+    torch.testing.assert_close(band, got[:, th:], atol=0, rtol=0)
 
 
 @pytest.mark.cuda

@@ -174,3 +174,61 @@ def jax_lod_case():
         light_w=cfg.light_grid_size, vol_zmax=s_.vol_zmax,
         sorted_output=True, swap_basis=basis))(st)
     return cfg, st, cam, po, lod_cull, basis, out
+
+
+def pallas_raster_bin_eval(tile_of_chunk, x0, y0, coef, n_tiles: int):
+    """The binned-raster eval kernel of `tools/raster_bin_microbench.py`
+    in interpret mode. The tool builds its `pallas_call` inside `main()`,
+    so this restates the kernel body and the call (lines 138-177) on
+    numpy operands -> (n_tiles * 8, 128) int32. Tiles that no chunk maps
+    to are never written and hold no defined value."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    n_c = tile_of_chunk.shape[0]
+    first = np.ones((n_c,), np.int32)
+    first[1:] = tile_of_chunk[1:] != tile_of_chunk[:-1]
+
+    def kern(tile_ref, first_ref, x0_ref, y0_ref, coef_ref, out_ref):
+        i = pl.program_id(0)
+        xg = jax.lax.broadcasted_iota(jnp.int32, (8, 128, 128), 1) \
+            .astype(jnp.float32) + x0_ref[i] + 0.5
+        yg = jax.lax.broadcasted_iota(jnp.int32, (8, 128, 128), 0) \
+            .astype(jnp.float32) + y0_ref[i] + 0.5
+        c = coef_ref[...]                       # (16, 128)
+        c1 = xg * c[0][None, None] + yg * c[1][None, None] + c[2][None, None]
+        c2 = xg * c[3][None, None] + yg * c[4][None, None] + c[5][None, None]
+        z = xg * c[6][None, None] + yg * c[7][None, None] + c[8][None, None]
+        b0 = 1.0 - c1 - c2
+        ok = (jnp.minimum(jnp.minimum(c1, c2), b0) >= 0.0) \
+            & (z >= 0.0) & (z <= 1.0)
+        zq = jnp.clip(z * 32767.0, 0, 32767).astype(jnp.int32)
+        tid = c[9][None, None].astype(jnp.int32)
+        packed = jnp.where(ok, (zq << 17) | tid, jnp.int32(0x7FFFFFFF))
+        m = jnp.min(packed, axis=-1)            # (8, 128)
+
+        @pl.when(first_ref[i] == 1)
+        def _init():
+            out_ref[...] = m
+
+        @pl.when(first_ref[i] == 0)
+        def _acc():
+            out_ref[...] = jnp.minimum(out_ref[...], m)
+
+    grid_spec = pltpu.PrefetchScalarGridSpec(
+        num_scalar_prefetch=4,
+        grid=(n_c,),
+        in_specs=[pl.BlockSpec((16, 128), lambda i, *s: (0, i))],
+        out_specs=pl.BlockSpec((8, 128), lambda i, t, f, x, y: (t[i], 0)),
+    )
+    evalk = pl.pallas_call(
+        kern,
+        grid_spec=grid_spec,
+        out_shape=jax.ShapeDtypeStruct((n_tiles * 8, 128), jnp.int32),
+        interpret=True,
+    )
+    return np.asarray(evalk(jnp.asarray(tile_of_chunk), jnp.asarray(first),
+                            jnp.asarray(x0), jnp.asarray(y0),
+                            jnp.asarray(coef)))
