@@ -18,9 +18,16 @@ Phases (any failure exits non-zero, and no result line is printed):
      the volumes that hold a penumbra of its shadow and at the refresh's
      full cohort, and on a refresh whose light sweep runs along y: the
      demo's light is above the volumes and the mesh lies low, so there it
-     may shadow none; B1 also at the frame's S=64 and S=32 buckets), with
+     may shadow none; B1 on the first four volumes of the frame's S=128
+     bucket at the strict limit and on the whole S=128, S=64 and S=32
+     buckets; B3 also at the full refresh's 64 volumes), with
      the parity tolerance of the kernel's card test; times of both from
-     CUDA events after warm-up, and each kernel's bound (below);
+     CUDA events after warm-up, each kernel's bound (below), for B1 the
+     device time of the kernel alone (`device_ms`, profiler), and on
+     lines of their own ("[occupancy]", "[floor]") the registers, shared
+     memory, cluster size and CTAs per SM of the B1 and B3 launches and
+     the floor of B3's dependent chain (its launch with an empty body:
+     L cluster barriers);
   4. the main path at the 64-volume 1280x800 demo scale (no mesh, TAA on):
      4 frames along the orbit through `MultiRayCaster.render`, then the
      same 4 cameras through `MultiRayCaster.render_block` from a copy of
@@ -199,11 +206,39 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare_kernel(name, fn, args, kwargs, tol, bound_of, reps=(10, 2)):
+def device_ms(fn, kernel: str, reps: int = 5):
+    """Mean device time (ms) of the kernels whose name contains `kernel`
+    over `reps` runs of fn(), from the profiler's kernel events (a profile
+    now and then records none: tried three times); None when the profiler
+    records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and kernel in e.name]
+        if times:
+            return sum(times) / len(times)
+    return None
+
+
+def compare_kernel(name, fn, args, kwargs, tol, bound_of, reps=(10, 2),
+                   device_kernel=None):
     """Run wrapper `fn` with impl kernel and plain on the same operands;
     check the tolerance (`tol=None`: integer outputs that must be equal);
     return the summary entry (launches filled in later).
-    `bound_of(args, kwargs)` -> (bytes, f32 operations)."""
+    `bound_of(args, kwargs)` -> (bytes, f32 operations). With
+    `device_kernel`, the entry also carries `device_ms`, the device time
+    of the kernels of that name alone (the event time `ms` includes the
+    wrapper's PyTorch operations)."""
     import torch
 
     got = fn(*args, **dict(kwargs, impl="kernel"))
@@ -237,10 +272,16 @@ def compare_kernel(name, fn, args, kwargs, tol, bound_of, reps=(10, 2)):
         f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
         f"{flops / 1e9:.3f} GFLOP)")
     src, replaces = KERNELS[row_kernel(name)[0]]
-    return {"name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+    row = {"name": name, "route": "cuda", "source": src,
+           "replaces": replaces, "max_abs_err": max_err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": None}
+    if device_kernel is not None:
+        row["device_ms"] = device_ms(
+            lambda: fn(*args, **dict(kwargs, impl="kernel")), device_kernel)
+        log(f"  {name}: device time of the kernel alone "
+            f"{row['device_ms']} ms")
+    return row
 
 
 def _nbytes(*tensors) -> int:
@@ -525,6 +566,7 @@ def phase_kernels(cfg, dev):
     from multivolumes_tpu_torch.core import camera as cam_lib
     from multivolumes_tpu_torch.engine import MultiRayCaster
     from multivolumes_tpu_torch.ops import lightsweep as light_ops
+    from multivolumes_tpu_torch.ops import sweep as sweep_ops
     from multivolumes_tpu_torch.ops import taa as taa_ops
     from multivolumes_tpu_torch.render import frame as frame_lib
     from multivolumes_tpu_torch.render import sweep as sweep_mod
@@ -563,21 +605,27 @@ def phase_kernels(cfg, dev):
     k4.pop("impl", None)
     check(size == cfg.cube_map_size, f"sweep bucket 0 size {size}")
     results.append(compare_kernel("sweep", sweep_mod.sweep_march, a4, k4,
-                                  sweep_tol, bound_sweep, reps=(10, 2)))
-    # the frame's other two launches of B1: the whole S/2 and S/4 buckets
+                                  sweep_tol, bound_sweep, reps=(10, 2),
+                                  device_kernel="sweep_kernel"))
+    # the frame's three launches of B1: the whole S, S/2 and S/4 buckets
     # (whole buckets: a few texels in a million land on the other side of
     # the march's interval or density test; counted, ROADMAP.md section C)
     bucket_tol = allclose_tol(2e-3, 2e-2, "sweep bucket",
                               outlier_share=1e-5, outlier_max=5e-2)
-    for (a, k) in frame_calls["sweep_march*"][1:]:
+    for (a, k) in frame_calls["sweep_march*"]:
         k = dict(k)
         k.pop("impl", None)
+        info = sweep_ops.sweep_launch_info(
+            a[8], a[7], a[0].shape[1], a[1].shape[1],
+            a[0].dtype == torch.bfloat16)
         log(f"[kernel] sweep bucket S={a[8]}: {a[2].shape[0]} volumes")
+        log(f"[occupancy] sweep@S{a[8]} ({a[0].dtype}): {info}")
         results.append(compare_kernel(
             f"sweep@S{a[8]}", sweep_mod.sweep_march, a, k, bucket_tol,
-            bound_sweep, reps=(10, 1)))
+            bound_sweep, reps=(10, 1), device_kernel="sweep_kernel"))
     check([r["name"] for r in results]
-          == ["sweep", f"sweep@S{size // 2}", f"sweep@S{size // 4}"],
+          == ["sweep", f"sweep@S{size}", f"sweep@S{size // 2}",
+              f"sweep@S{size // 4}"],
           f"sweep buckets {[r['name'] for r in results]}")
     (a, k) = frame_calls["tile_composite"]
     k = dict(k)
@@ -586,17 +634,25 @@ def phase_kernels(cfg, dev):
         "composite", tile_mod.tile_composite, a, k,
         image_tol(3e-3, 99.5, 3e-2, "composite"), bound_composite,
         reps=(10, 1)))
-    for cname, calls in (("C1", frame_calls), ("C8", init_calls)):
+    # B3 on the frame's cohort of one, on 8 volumes and on all 64 of the
+    # full refresh that the engine's start and set_light launch
+    for cname, calls in (("C1", frame_calls), ("C8", init_calls),
+                         ("C64", init_calls)):
         (a, k) = calls["light_self_scan"]
         k = dict(k)
         k.pop("impl", None)
         if cname == "C8":
             a = tuple(x[:8] for x in a)
-        check(a[0].shape[0] == int(cname[1:]), f"cohort {a[0].shape}")
+        c, l = a[0].shape[0], a[0].shape[1]
+        check(c == int(cname[1:]), f"cohort {a[0].shape}")
         results.append(compare_kernel(f"light_self_scan@{cname}",
                                       light_ops.light_self_scan, a, k,
                                       light_tol, bound_self_scan,
                                       reps=(10, 2)))
+        scan_numbers(light_ops, f"light_self_scan@{cname}", c, l, False,
+                     dev)
+        if cname == "C64":
+            continue
         (a, k) = calls["light_advect_mul"]
         k = dict(k)
         k.pop("impl", None)
@@ -712,6 +768,8 @@ def phase_mesh_kernels(cfg, dev, mesh_path):
     results.append(compare_kernel(
         "light_self_scan@sm-C1", light_ops.light_self_scan, a, k, light_tol,
         bound_self_scan, reps=(10, 2)))
+    scan_numbers(light_ops, "light_self_scan@sm-C1", 1, a[0].shape[1], True,
+                 dev)
     (a, k) = low_calls["light_self_scan"]
     k = {name: x for name, x in k.items() if name != "impl"}
     pen = penumbra(a, k)
@@ -729,6 +787,8 @@ def phase_mesh_kernels(cfg, dev, mesh_path):
     results.append(compare_kernel(
         f"light_self_scan@sm-C{a[0].shape[0]}", light_ops.light_self_scan,
         a, k, light_tol, bound_self_scan, reps=(5, 1)))
+    scan_numbers(light_ops, f"light_self_scan@sm-C{a[0].shape[0]}",
+                 a[0].shape[0], a[0].shape[1], True, dev)
     # a refresh whose light sweep runs along y (the lateral planes permute)
     (a, k) = y_calls["light_self_scan"]
     k = {name: x for name, x in k.items() if name != "impl"}
@@ -745,6 +805,24 @@ def phase_mesh_kernels(cfg, dev, mesh_path):
         reps=(10, 2)))
     del calls, low_calls, y_calls
     return engine, results
+
+
+def scan_numbers(light_ops, name, c, l, has_sm, dev):
+    """Log how the self scan of (c, l) launches (cluster size, band,
+    threads, shared memory, registers, CTAs per SM) and the floor of its
+    dependent chain: the device time of the same launch with an empty
+    body (l cluster barriers), at the planned cluster size and, for one
+    volume, at the smaller ones."""
+    info = light_ops.scan_launch_info(c, l, has_sm)
+    log(f"[occupancy] {name} (C={c}, L={l}): {info}")
+    sizes = [0] + ([s for s in (2, 4) if s < info["cluster"]]
+                   if c == 1 else [])
+    floors = {s or info["cluster"]: device_ms(
+        lambda s=s: light_ops.scan_chain_floor(c, l, has_sm, dev, s),
+        "self_scan_kernel", reps=10) for s in sizes}
+    log(f"[floor] {name}: {l} barriers and an empty body, device ms by "
+        f"cluster size: {floors}")
+    return floors
 
 
 def penumbra(args, kwargs):

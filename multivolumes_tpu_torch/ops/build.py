@@ -37,16 +37,19 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points: name -> argument types (every one returns cudaError_t)
 SIGNATURES = {
-    "mv_sweep_march": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _I, _P],
+    "mv_sweep_march": [_P] * 15 + [_I] * 6 + [_F, _P],
+    "mv_sweep_info": [_I, _I, _I, _I, _I, _P],
     "mv_tile_composite": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "mv_light_self_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "mv_light_self_scan_sm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                               _P],
     "mv_light_advect_mul": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "mv_light_scan_floor": [_I, _I, _I, _I, _P],
+    "mv_light_scan_info": [_I, _I, _I, _P],
     "mv_taa_resolve": [_P, _P, _P, _P, _P, _I, _I, _P],
     "mv_taa_resolve_band": [_P, _P, _P, _P, _I, _I, _P],
     "mv_raster_bin_eval": [_P, _P, _P, _P, _P, _I, _I, _I, _P],

@@ -86,6 +86,92 @@ def bshift_lerp(x, taps_v, taps_u):
     return top * (1.0 - fv_) + bot * fv_
 
 
+def atten_ahead(rho_o, f_corr):
+    """The attenuation of every slice, (C, L, L, L), computed before the
+    scan as the kernel does (`csrc/lightsweep.cu`, the density ring): it
+    depends on the density alone, so only s <- B(s) * a_k is serial.
+    Slice k is `_atten(rho_o[:, k], f_corr)` bit for bit (evaluated slice
+    by slice: on the CPU the vector and the scalar paths of exp2 and log2
+    round differently, so one call over another shape need not be)."""
+    return torch.stack([_atten(rho_o[:, k], f_corr)
+                        for k in range(rho_o.shape[1])], dim=1)
+
+
+def band_rows(l: int, n_bands: int):
+    """The kernel's split of L rows over a cluster of `n_bands` CTAs:
+    [(r_lo, r_hi), ...] with ceil(L / n_bands) rows a band, the last
+    shorter or empty."""
+    band = -(-l // n_bands)
+    return [(min(r * band, l), min(r * band + band, l))
+            for r in range(n_bands)]
+
+
+def bshift_lerp_bands(x, taps_v, taps_u, n_bands: int):
+    """`bshift_lerp` evaluated band by band, as the kernel's cluster does:
+    the plane is held as `n_bands` separate row bands, each output band
+    reads its tap rows from the band that owns them (row r lives in band
+    r // ceil(L / n_bands), at local row r - r_lo), and the bands are
+    concatenated. Equal to `bshift_lerp` bit for bit."""
+    v0, v1, fv = taps_v
+    u0, u1, fu = taps_u
+    c, l = x.shape[0], x.shape[1]
+    band = -(-l // n_bands)
+    rows = band_rows(l, n_bands)
+    held = [x[:, lo:hi].clone() for lo, hi in rows]
+
+    def fetch(r):
+        """(C, n) row indices -> (C, n, L) rows, each from its owner"""
+        out = torch.empty((c, r.shape[1], l), dtype=x.dtype, device=x.device)
+        owner = r // band
+        for o, (lo, _hi) in enumerate(rows):
+            ci, ni = torch.nonzero(owner == o, as_tuple=True)
+            out[ci, ni] = held[o][ci, r[ci, ni] - lo]
+        return out
+
+    def cols(y, i):
+        return torch.gather(y, 2, i[:, None, :].expand(c, y.shape[1], l))
+
+    fu_ = fu[:, None, :]
+    parts = []
+    for lo, hi in rows:
+        top, bot = fetch(v0[:, lo:hi]), fetch(v1[:, lo:hi])
+        fv_ = fv[:, lo:hi, None]
+        top = cols(top, u0) * (1.0 - fu_) + cols(top, u1) * fu_
+        bot = cols(bot, u0) * (1.0 - fu_) + cols(bot, u1) * fu_
+        parts.append(top * (1.0 - fv_) + bot * fv_)
+    return torch.cat(parts, dim=1)
+
+
+def scan_launch_info(c: int, l: int, has_sm: bool = False) -> dict:
+    """How the self scan of a cohort of `c` volumes of side `l` launches
+    on the current card: cluster size, rows per band, threads, shared
+    memory per CTA, registers per thread, CTAs per SM and the clusters
+    that run at once (`csrc/lightsweep.cu: mv_light_scan_info`)."""
+    import ctypes
+
+    from multivolumes_tpu_torch.ops import build
+
+    out = (ctypes.c_int * 8)()
+    err = build.library().mv_light_scan_info(c, l, int(has_sm), out)
+    if err != 0:
+        raise RuntimeError(f"mv_light_scan_info: CUDA error {err}")
+    keys = ("cluster", "band_rows", "threads", "smem_bytes", "registers",
+            "ctas_per_sm", "active_clusters", "static_smem_bytes")
+    return dict(zip(keys, out))
+
+
+def scan_chain_floor(c: int, l: int, has_sm: bool, device,
+                     cluster: int = 0) -> None:
+    """Launch the self scan of (c, l) with an empty body: its L cluster
+    barriers and nothing else. Timed beside the kernel, it is the floor
+    of the scan's dependent chain. `cluster` > 0 takes that cluster size
+    in place of the planned one. Not a kernel of any path (no count)."""
+    from multivolumes_tpu_torch.ops import build
+
+    build.launch("mv_light_scan_floor", c, l, int(has_sm), cluster,
+                 device=device)
+
+
 def light_self_scan_plain(rho_o, du, dv, f_corr, sm_vol=None, z_entry=None,
                           dz_slice=None, soft=None):
     """Plain version of B3 (the `self_body` scan): here_k = B(s_k) * lit_k,

@@ -156,21 +156,55 @@ def test_b6_kernel_matches_plain_on_card():
         assert int((got != raster_bin.EMPTY).sum()) > 0
 
 
+# cohort sizes x light grid sides of the self scan: one volume (the frame's
+# refresh, a cluster of 8 CTAs at L = 96), a few, and a full refresh of 64
+# (clusters of 2); L = 20 is one CTA per volume
+SCAN_SHAPES = [(c, l) for l in (96, 20) for c in (1, 5, 64)]
+
+
 @pytest.mark.cuda
 def test_b3_b4_kernels_match_plain_on_card():
     dev = cuda_device()
-    for c, l in ((1, 96), (4, 24)):
+    for c, l in SCAN_SHAPES:
         rho, du, dv, f, t_in = _scan_case(dev, c=c, l=l)
+        ops.reset_launches()
         here_k, sout_k = light_ops.light_self_scan(rho, du, dv, f,
                                                    impl="kernel")
+        assert ops.LAUNCHES["light_self_scan"] == 1
         here_p, sout_p = light_ops.light_self_scan(rho, du, dv, f,
                                                    impl="plain")
         torch.testing.assert_close(here_k, here_p, atol=1e-5, rtol=0)
         torch.testing.assert_close(sout_k, sout_p, atol=1e-5, rtol=0)
+    for c, l in ((1, 96), (4, 24)):
+        rho, du, dv, f, t_in = _scan_case(dev, c=c, l=l)
+        here_p, _ = light_ops.light_self_scan(rho, du, dv, f, impl="plain")
         torch.testing.assert_close(
             light_ops.light_advect_mul(here_p, t_in, du, dv, impl="kernel"),
             light_ops.light_advect_mul(here_p, t_in, du, dv, impl="plain"),
             atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_b3_cluster_plan_on_card():
+    """The scan's launch shape follows the cohort: a cluster of 8 CTAs for
+    one 96^3 volume, of 2 for 64 of them, one CTA for a 20^3 volume; a
+    side that is no multiple of 4 (no bulk stores) and a ragged last band
+    (L = 100 on 8 bands of 13 rows) still match the plain version."""
+    dev = cuda_device()
+    assert light_ops.scan_launch_info(1, 96)["cluster"] == 8
+    assert light_ops.scan_launch_info(1, 96, True)["cluster"] == 8
+    assert light_ops.scan_launch_info(64, 96, True)["cluster"] == 2
+    assert light_ops.scan_launch_info(1, 20)["cluster"] == 1
+    for c, l in ((2, 100), (3, 34), (2, 10)):
+        rho, du, dv, f, _t = _scan_case(dev, c=c, l=l)
+        sm = _sm_case(dev, c, l)
+        for extra in ((), sm):
+            got = light_ops.light_self_scan(rho, du, dv, f, *extra,
+                                            impl="kernel")
+            want = light_ops.light_self_scan(rho, du, dv, f, *extra,
+                                             impl="plain")
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
 
 
 def _sm_case(device, c, l, seed=1):
@@ -188,7 +222,7 @@ def _sm_case(device, c, l, seed=1):
 @pytest.mark.cuda
 def test_b3_shadow_map_kernel_matches_plain_on_card():
     dev = cuda_device()
-    for c, l in ((1, 96), (4, 24)):
+    for c, l in SCAN_SHAPES:
         rho, du, dv, f, _t = _scan_case(dev, c=c, l=l)
         sm = _sm_case(dev, c, l)
         ops.reset_launches()
@@ -237,14 +271,69 @@ def test_b2_depth_kernel_matches_plain_on_card(tmp_path):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("with_zmax", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_b1_kernel_matches_plain_on_card(dtype):
+def test_b1_kernel_matches_plain_on_card(dtype, with_zmax):
+    """Eyes outside, inside and grazing the cube, a volume at n_eff < S
+    whose rays beyond the corner stay active, a face that does not run,
+    with and without the transparent-slab skip; in bf16 the faces stage
+    their slabs in shared memory at this size, in f32 they march by the
+    direct fetch."""
     dev = cuda_device()
     args, kw = _b1_case(dev, dtype)
-    zmax = state_lib.slab_density_max(args[0])
+    zmax = state_lib.slab_density_max(args[0]) if with_zmax else None
+    info = sweep_ops.sweep_launch_info(args[8], args[7], args[0].shape[1],
+                                       args[1].shape[1],
+                                       dtype == torch.bfloat16)
+    assert info["stages"] == int(dtype == torch.bfloat16), info
+    ops.reset_launches()
     got = sweep_ops.sweep_march(*args, **kw, vol_zmax=zmax, impl="kernel")
+    assert ops.LAUNCHES["sweep"] == 1
     want = sweep_ops.sweep_march(*args, **kw, impl="plain")
     torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-2)
+    rays = sweep_ops.sweep_march_rays_plain(*args, **kw)
+    torch.testing.assert_close(got, rays, atol=2e-3, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_bf16", [False, True])
+def test_b1_whole_bucket_on_card(use_bf16):
+    """B1 on the whole buckets of a frame (8 volumes at S = 64, which
+    stage in bf16, and 24 at S = 32, which march by the direct fetch): the
+    march's
+    interval and density tests are discontinuous, so the texels beyond
+    atol 2e-3 + rtol 2e-2 are counted, at most 1e-5 of them and each
+    within 5e-2."""
+    dev = cuda_device()
+    cfg = RenderConfig(width=640, height=400, grid_size=64,
+                       light_grid_size=48, max_ray_samples=128,
+                       max_light_samples=48, num_volumes=32,
+                       num_volume_srcs=4, cube_map_size=64,
+                       use_bf16=use_bf16)
+    st = state_lib.create_scene(cfg, dev)
+    cam = cam_lib.orbit_camera(0.3, cfg.aspect_ratio, device=dev)
+    calls = []
+    orig = sweep_lib.sweep_march
+
+    def spy(*a, **k):
+        calls.append((a, k))
+        return orig(*a, **k)
+
+    sweep_lib.sweep_march = spy
+    try:
+        frame_lib.render_frame(st, cam, cfg, impl="kernel")
+    finally:
+        sweep_lib.sweep_march = orig
+    assert [a[8] for a, _k in calls] == [64, 32], [a[8] for a, _k in calls]
+    for a, k in calls:
+        k = {key: v for key, v in k.items() if key != "impl"}
+        got = orig(*a, **k, impl="kernel")
+        want = orig(*a, **k, impl="plain")
+        assert float(want.abs().max()) > 0.05
+        err = (got - want).abs()
+        bad = err > 2e-3 + 2e-2 * want.abs()
+        assert int(bad.sum()) <= 1e-5 * bad.numel(), int(bad.sum())
+        assert not bool(bad.any()) or float(err[bad].max()) <= 5e-2
 
 
 @pytest.mark.cuda

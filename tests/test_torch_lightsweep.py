@@ -135,3 +135,53 @@ def test_light_maps_match_jax(scene, probe):
         has_light_probe=probe)
     np.testing.assert_allclose(n(maps_p), n(maps_j), atol=1e-4, rtol=1e-5)
     np.testing.assert_allclose(n(sout_p), n(sout_j), atol=ATOL)
+
+
+# --- what the cluster-banded self scan (csrc/lightsweep.cu) relies on -------
+
+@pytest.mark.parametrize("n_bands", [1, 2, 8])
+@pytest.mark.parametrize("l", [16, 20])
+@pytest.mark.parametrize("shift", [-1.0, -0.37, 0.0, 0.5, 1.0, 2.6])
+def test_bshift_lerp_by_row_bands_is_the_whole_plane(shift, l, n_bands):
+    """Each band of rows computed from its own rows plus the rows its taps
+    name, fetched from their owner band, equals the whole-plane lerp bit
+    for bit (L = 20 on 8 bands is ragged: bands of 3 rows, the last of 2,
+    one empty)."""
+    rng = np.random.RandomState(int(l * 10 + n_bands))
+    x = t(rng.rand(2, l, l))
+    dv = t(np.array([shift, -shift], np.float32))
+    du = t(np.array([0.3 * shift, shift], np.float32))
+    taps_v, taps_u = pops.shift_taps(l, dv), pops.shift_taps(l, du)
+    rows = pops.band_rows(l, n_bands)
+    assert rows[0][0] == 0 and max(hi for _lo, hi in rows) == l
+    assert all(a[1] == b[0] or b[0] == l for a, b in zip(rows, rows[1:]))
+    whole = pops.bshift_lerp(x, taps_v, taps_u)
+    banded = pops.bshift_lerp_bands(x, taps_v, taps_u, n_bands)
+    assert torch.equal(whole, banded)
+    # and it is the shear itself
+    mv, mu = pops.interp_matrix_shift(l, dv), pops.interp_matrix_shift(l, du)
+    np.testing.assert_allclose(n(banded), n(pops._bshift(x, mv, mu)),
+                               atol=1e-6)
+
+
+def test_attenuation_ahead_is_the_per_slice_attenuation():
+    """The attenuation taken out of the serial chain: computed for all
+    slices before the scan it equals the per-slice value bit for bit, and
+    a scan that only multiplies by it equals the plain scan bit for bit."""
+    rho, du, dv, f, _t = _scan_case(c=3, l=12, seed=4)
+    rho[0, :, :2] = 1.0          # 1 - 0.8 rho = 0.2
+    rho[1, 3] = 1.25             # the clamp max(1 - 0.8 rho, 1e-7)
+    ahead = pops.atten_ahead(t(rho), t(f))
+    for k in range(rho.shape[1]):
+        assert torch.equal(ahead[:, k], pops._atten(t(rho)[:, k], t(f)))
+    assert float(ahead.min()) < 1e-3 and float(ahead.max()) > 0.99
+    l = rho.shape[1]
+    mu, mv = pops.interp_matrix_shift(l, t(du)), \
+        pops.interp_matrix_shift(l, t(dv))
+    s = torch.ones((3, l, l))
+    here = torch.empty((3, l, l, l))
+    for k in range(l):
+        here[:, k] = pops._bshift(s, mv, mu)
+        s = here[:, k] * ahead[:, k]
+    here_p, sout_p = pops.light_self_scan_plain(t(rho), t(du), t(dv), t(f))
+    assert torch.equal(here, here_p) and torch.equal(s, sout_p)
