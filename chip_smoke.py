@@ -20,14 +20,15 @@ Phases (any failure exits non-zero, and no result line is printed):
      demo's light is above the volumes and the mesh lies low, so there it
      may shadow none; B1 on the first four volumes of the frame's S=128
      bucket at the strict limit and on the whole S=128, S=64 and S=32
-     buckets; B3 also at the full refresh's 64 volumes), with
+     buckets; B3 and B4 also at the full refresh's 64 volumes), with
      the parity tolerance of the kernel's card test; times of both from
-     CUDA events after warm-up, each kernel's bound (below), for B1 the
-     device time of the kernel alone (`device_ms`, profiler), and on
-     lines of their own ("[occupancy]", "[floor]") the registers, shared
-     memory, cluster size and CTAs per SM of the B1 and B3 launches and
-     the floor of B3's dependent chain (its launch with an empty body:
-     L cluster barriers);
+     CUDA events after warm-up, each kernel's bound (below), for B1, B2,
+     B2', the B2 band and B4 the device time of the kernels a call
+     launches (`device_ms`, profiler), and on lines of their own
+     ("[occupancy]", "[floor]") the registers, shared memory, cluster
+     size and CTAs per SM of the B1, B2, B3 and B4 launches, the
+     composite's list lengths, and the floor of B3's and B4's dependent
+     chains (their launch with an empty body: L cluster barriers);
   4. the main path at the 64-volume 1280x800 demo scale (no mesh, TAA on):
      4 frames along the orbit through `MultiRayCaster.render`, then the
      same 4 cameras through `MultiRayCaster.render_block` from a copy of
@@ -134,6 +135,8 @@ def row_kernel(name):
     or before "-C<n>" for the shadow-map rows."""
     return ROW_KERNEL.get(name.split("-C")[0], (name.split("@")[0], "plain"))
 
+# the kernels one composite call launches (the depth variant's vote first)
+COMPOSITE_KERNELS = ("tile_composite_kernel", "mesh_tile_kernel")
 # the card's rates for the bound: HBM3 bytes/s and f32 FLOP/s (H100 SXM)
 MEM_RATE = 3.35e12
 F32_RATE = 67e12
@@ -206,9 +209,10 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernel: str, reps: int = 5):
-    """Mean device time (ms) of the kernels whose name contains `kernel`
-    over `reps` runs of fn(), from the profiler's kernel events (a profile
+def device_ms(fn, kernel, reps: int = 5):
+    """Device time (ms) per run of fn() of the kernels whose name contains
+    `kernel` (a name or a tuple of names: a call may launch several, each
+    once), over `reps` runs, from the profiler's kernel events (a profile
     now and then records none: tried three times); None when the profiler
     records no device time."""
     import torch
@@ -223,10 +227,16 @@ def device_ms(fn, kernel: str, reps: int = 5):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and kernel in e.name]
-        if times:
-            return sum(times) / len(times)
+        names = (kernel,) if isinstance(kernel, str) else kernel
+        per = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA \
+                    and any(k in e.name for k in names):
+                per.setdefault(e.name, []).append(
+                    e.time_range.elapsed_us() / 1e3)
+        if per:
+            # each name's mean: a profile may drop an event now and then
+            return sum(sum(t) / len(t) for t in per.values())
     return None
 
 
@@ -633,7 +643,8 @@ def phase_kernels(cfg, dev):
     results.append(compare_kernel(
         "composite", tile_mod.tile_composite, a, k,
         image_tol(3e-3, 99.5, 3e-2, "composite"), bound_composite,
-        reps=(10, 1)))
+        reps=(10, 1), device_kernel=COMPOSITE_KERNELS))
+    composite_numbers(a, k, "composite")
     # B3 on the frame's cohort of one, on 8 volumes and on all 64 of the
     # full refresh that the engine's start and set_light launch
     for cname, calls in (("C1", frame_calls), ("C8", init_calls),
@@ -651,17 +662,28 @@ def phase_kernels(cfg, dev):
                                       reps=(10, 2)))
         scan_numbers(light_ops, f"light_self_scan@{cname}", c, l, False,
                      dev)
-        if cname == "C64":
-            continue
         (a, k) = calls["light_advect_mul"]
         k = dict(k)
         k.pop("impl", None)
         if cname == "C8":
-            a = tuple(x[:8] for x in a)
+            # the 8 volumes of the full refresh that lie most in the
+            # others' shadow: a t_in that is constant (1 for the volumes
+            # nothing lies in front of) would not tell a kernel whose
+            # carry starts from 1, or from another band's rows
+            sel = torch.argsort(a[1].amin(dim=(1, 2)))[:8]
+            a = tuple(x[sel] for x in a)
+        check(a[0].shape[0] == c, f"advect cohort {a[0].shape}")
+        log(f"  light_advect_mul@{cname}: t_in in [{float(a[1].min()):.4f},"
+            f" {float(a[1].max()):.4f}]")
+        check(cname == "C1" or float(a[1].min()) < 0.9,
+              f"{cname}: t_in is (nearly) constant")
         results.append(compare_kernel(f"light_advect_mul@{cname}",
                                       light_ops.light_advect_mul, a, k,
                                       light_tol, bound_advect,
-                                      reps=(10, 2)))
+                                      reps=(10, 2),
+                                      device_kernel="self_scan_kernel"))
+        scan_numbers(light_ops, f"light_advect_mul@{cname}", c, l, False,
+                     dev, advect=True)
     taa_tol = allclose_tol(2e-5, 0.0, "taa")
     (a, _k) = taa_calls["taa_resolve"]
     check(float(a[1][3].min()) > 0.0, "frame 3's TAA history is still zero")
@@ -757,7 +779,8 @@ def phase_mesh_kernels(cfg, dev, mesh_path):
     results.append(compare_kernel(
         "composite@depth", tile_mod.tile_composite, a, k,
         allclose_tol(1e-4, 1e-4, "composite@depth"), bound_composite,
-        reps=(10, 1)))
+        reps=(10, 1), device_kernel=COMPOSITE_KERNELS))
+    composite_numbers(a, k, "composite@depth")
     light_tol = allclose_tol(1e-5, 0.0, "light_self_scan@sm")
     (a, k) = calls["light_self_scan"]
     k = dict(k)
@@ -807,22 +830,45 @@ def phase_mesh_kernels(cfg, dev, mesh_path):
     return engine, results
 
 
-def scan_numbers(light_ops, name, c, l, has_sm, dev):
-    """Log how the self scan of (c, l) launches (cluster size, band,
-    threads, shared memory, registers, CTAs per SM) and the floor of its
-    dependent chain: the device time of the same launch with an empty
-    body (l cluster barriers), at the planned cluster size and, for one
-    volume, at the smaller ones."""
-    info = light_ops.scan_launch_info(c, l, has_sm)
+def scan_numbers(light_ops, name, c, l, has_sm, dev, advect=False):
+    """Log how the self scan (`advect`: the advect-multiply, B4) of (c, l)
+    launches (cluster size, band, threads, shared memory, registers, CTAs
+    per SM) and the floor of its dependent chain: the device time of the
+    same launch with an empty body (l cluster barriers), at the planned
+    cluster size and, for one volume's self scan, at the smaller ones."""
+    info = light_ops.scan_launch_info(c, l, has_sm, advect=advect)
     log(f"[occupancy] {name} (C={c}, L={l}): {info}")
     sizes = [0] + ([s for s in (2, 4) if s < info["cluster"]]
-                   if c == 1 else [])
+                   if c == 1 and not advect else [])
     floors = {s or info["cluster"]: device_ms(
-        lambda s=s: light_ops.scan_chain_floor(c, l, has_sm, dev, s),
+        lambda s=s: light_ops.scan_chain_floor(c, l, has_sm, dev, s,
+                                               advect=advect),
         "self_scan_kernel", reps=10) for s in sizes}
     log(f"[floor] {name}: {l} barriers and an empty body, device ms by "
         f"cluster size: {floors}")
     return floors
+
+
+def composite_numbers(args, kwargs, name):
+    """Log how the composite launches (registers, CTAs per SM, shared
+    memory, spills), its (pixel, listed volume) pairs and, for the depth
+    variant, the device time of its per-tile mesh vote alone."""
+    import torch
+
+    from multivolumes_tpu_torch.ops import composite as composite_ops
+
+    color, _scene, tlist, counts, _vf, _ff, th, tw = args[:8]
+    depth = kwargs.get("depth_sel") is not None
+    info = composite_ops.composite_launch_info(
+        color.dtype == torch.bfloat16, depth)
+    log(f"[occupancy] {name} ({color.dtype}): {info}")
+    log(f"  {name}: {tlist.shape[0]} tiles, list length mean "
+        f"{float(counts.float().mean()):.2f} max {int(counts.max())}, "
+        f"{int(counts.sum()) * th * tw} (pixel, listed volume) pairs")
+    if depth:
+        vote = device_ms(lambda: composite_ops.tile_composite(
+            *args, **dict(kwargs, impl="kernel")), "mesh_tile_kernel")
+        log(f"  {name}: the mesh vote alone, device ms {vote}")
 
 
 def penumbra(args, kwargs):
@@ -1204,7 +1250,7 @@ def phase_sharded(cfg, dev, frames: int = 3):
         results.append(compare_kernel(
             "composite@band", tile_mod.tile_composite, a, k,
             allclose_tol(1e-4, 1e-4, "composite@band"), bound_composite,
-            reps=(10, 1)))
+            reps=(10, 1), device_kernel=COMPOSITE_KERNELS))
         # the bands assemble the unbanded results bit for bit
         (a, _k) = calls["taa_resolve_band*"][-2]
         (b, _k) = calls["taa_resolve_band*"][-1]

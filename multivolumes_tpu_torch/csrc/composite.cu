@@ -22,33 +22,46 @@
 // at 0.9997 (`PSResolveOIT.hlsl:17-24`).
 //
 // Design. One thread per pixel, 32 x 8 pixels per CTA (a CTA never
-// straddles a 64 x 128 list tile); the K layers live in registers. The
-// TPU kernel's sweeps over the source axis, its one-hot MXU column hoist
-// and its static row windows exist because a dynamic lane index is not a
-// TPU primitive; here each tap is a direct load. The tile's exact
-// two-pass taps are computed per pixel, so no u/v sweep range can clip a
-// tap.
+// straddles a 64 x 128 list tile, so all its pixels share one list); the
+// K layers live in registers. The TPU kernel's sweeps over the source
+// axis, its one-hot MXU column hoist and its static row windows exist
+// because a dynamic lane index is not a TPU primitive; here each tap is a
+// direct load. The tile's exact two-pass taps are computed per pixel, so
+// no u/v sweep range can clip a tap.
 //
 // What bounds it on the card: the per-(pixel, listed volume) work (about
-// 150 flops and up to 16 two-byte gathers from the 4 channel planes),
-// so the time tracks sum over tiles of pixels x list length. Channel-last
-// faces (one 8-byte load per tap) and a shared-memory face cache per tile
-// are later work.
+// 150 flops, 11 IEEE divisions and up to 16 two-byte gathers from the 4
+// channel planes), so the time tracks sum over tiles of pixels x list
+// length. What the design does about it:
+//   * the CTA copies its tile's list and, for each listed volume, the
+//     21-float volume record and the six 9-float face records into shared
+//     memory once (kChunk volumes at a time), so the per-pair loop reads
+//     only shared memory (uniform or conflict-free) and the face texels;
+//   * the registers are bounded so that 3 CTAs share an SM (the 40
+//     floats of layer state stay in registers, a few others spill;
+//     `[occupancy]` in chip_smoke.py prints the counts);
+//   * every division stays an IEEE division, as in the plain version:
+//     the hit test, the exit-face select and floor(vt), floor(cu) are
+//     discontinuous, and a reciprocal's rounding would move pixels
+//     across them (tools/kernel_variants.py times that variant).
+// A cache of the exit faces' rows in shared memory per tile (the TPU
+// kernel's face scratch) is not built: the taps of a CTA's pixels are
+// neighbours, and the L1 serves them.
 //
 // Depth variant (the frames with the opaque mesh, `PSCube.hlsli:51-108`).
-// The CTA first decides whether its 64 x 128 list tile holds a mesh pixel
-// (scene clip z in (0, 1)): its 256 threads scan the tile's 8192 depths
-// (32 coalesced loads each, mostly L2 hits, as the 32 CTAs of a tile read
-// the same plane) and vote with __syncthreads_or. The gate is part of the
-// result: at a face's edge the tent weights sum to less than 1, and the
-// normalisation below would change the colour of tiles without a mesh.
-// On a mesh tile each of the two warp rows also u-interpolates the cube
-// depth (f32 plane, view distance, read only there) with the colour's
-// tent weights, the row weight becomes wv * max(wd, 1e-6) with
-// wd = max(1 - 0.5 |d_scene - d_row|, 0), and the four channels are
-// normalised by the weight sum (floored at 1e-20). The extra cost is one
-// f32 tap pair per row and the tile scan; the no-mesh frames launch the
-// plain instantiation and are unchanged.
+// Whether a 64 x 128 list tile holds a mesh pixel (scene clip z in
+// (0, 1)) is decided once per tile by a first small launch of the same
+// entry point (mesh_tile_kernel: one CTA reads the tile's 8192 depths
+// once and votes), into a flag per tile that every CTA of the tile reads.
+// The gate is part of the result: at a face's edge the tent weights sum
+// to less than 1, and the normalisation below would change the colour of
+// tiles without a mesh. On a mesh tile each of the two warp rows also
+// u-interpolates the cube depth (f32 plane, view distance, read only
+// there) with the colour's tent weights, the row weight becomes
+// wv * max(wd, 1e-6) with wd = max(1 - 0.5 |d_scene - d_row|, 0), and the
+// four channels are normalised by the weight sum (floored at 1e-20). The
+// extra cost is one f32 tap pair per row on mesh tiles and the vote; the
+// no-mesh frames launch the plain instantiation and no vote.
 
 #include "common.cuh"
 
@@ -60,6 +73,14 @@ constexpr float kBig = 1e30f;
 constexpr int kMaxLayers = 8;
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
+constexpr int kThreads = kBlockX * kBlockY;
+// CTAs an SM must hold (the register bound: 80 registers, a few spilled),
+// by measurement faster than 2 (106 registers unbounded) or 4 (PERF.md,
+// tools/kernel_variants.py)
+constexpr int kMinCtas = 3;
+constexpr int kChunk = 32;          // listed volumes in shared memory at once
+constexpr int kVolF = 21;           // floats of a volume record
+constexpr int kRecF = kVolF + 6 * 9;  // + its six face records
 constexpr float kZNear = 1.0f;
 constexpr float kZFar = 1000.0f;
 
@@ -127,37 +148,51 @@ __device__ __forceinline__ float row_depth(const float* dimg,
   return p[t.u0] * t.w0 + p[t.u1] * t.w1;
 }
 
+// Does list tile blockIdx.x hold a mesh pixel (0 < z < 1)? One CTA per
+// tile, 16-byte loads of its rows of the scene plane.
+__global__ void mesh_tile_kernel(const float* __restrict__ scene,
+                                 int* __restrict__ flags, int wp, int th,
+                                 int tw, int tiles_x) {
+  const int t = blockIdx.x;
+  const int ty0 = (t / tiles_x) * th, tx0 = (t % tiles_x) * tw;
+  const int q = tw / 4;
+  int m = 0;
+  for (int i = threadIdx.x; i < th * q; i += blockDim.x) {
+    const int r = i / q;
+    const float4 z = *reinterpret_cast<const float4*>(
+        scene + (size_t)(ty0 + r) * wp + tx0 + 4 * (i - r * q));
+    m |= (z.x > 0.0f && z.x < 1.0f) | (z.y > 0.0f && z.y < 1.0f)
+       | (z.z > 0.0f && z.z < 1.0f) | (z.w > 0.0f && z.w < 1.0f);
+  }
+  m = __syncthreads_or(m);
+  if (threadIdx.x == 0) flags[t] = m != 0;
+}
+
 template <typename T, bool kDepth>
-__global__ void tile_composite_kernel(
+__global__ void __launch_bounds__(kThreads, kMinCtas) tile_composite_kernel(
     const T* __restrict__ color, const float* __restrict__ depth,
     const int* __restrict__ tlist, const int* __restrict__ counts,
     const float* __restrict__ vol_flt, const float* __restrict__ face_flt,
-    const float* __restrict__ scene, float* __restrict__ out, int n, int s,
-    int hp, int wp, int th, int tw, int tiles_x, int k_layers, int width,
-    int height, int tile_row0) {
-  // the grid tiles (hp, wp) exactly (the wrapper checks th % 8 == 0 and
-  // tw % 32 == 0), so every thread reaches the tile vote below.
+    const float* __restrict__ scene, const int* __restrict__ mesh_flag,
+    float* __restrict__ out, int n, int s, int hp, int wp, int th, int tw,
+    int tiles_x, int k_layers, int width, int height, int tile_row0) {
+  // the grid tiles (hp, wp) exactly (the entry point checks th % 8 == 0
+  // and tw % 32 == 0), so every thread of a CTA reaches its barriers and
+  // all its pixels lie in list tile t.
   // (hp, wp) may be a band of tile rows of a taller screen (the sharded
-  // frame step): tlist, counts, scene and out are then the band's slices
-  // and py is a row of the band; only the pixel's NDC y takes the band's
-  // offset of tile_row0 tile rows.
+  // frame step): tlist, counts, scene, the flags and out are then the
+  // band's slices and py is a row of the band; only the pixel's NDC y
+  // takes the band's offset of tile_row0 tile rows.
+  __shared__ float rec[kChunk * kRecF];
+  __shared__ int rec_vid[kChunk];
+  const int tid = threadIdx.y * kBlockX + threadIdx.x;
   const int px = blockIdx.x * kBlockX + threadIdx.x;
   const int py = blockIdx.y * kBlockY + threadIdx.y;
-  bool mesh_tile = false;
-  if (kDepth) {
-    const int ty0 = (blockIdx.y * kBlockY / th) * th;
-    const int tx0 = (blockIdx.x * kBlockX / tw) * tw;
-    int m = 0;
-    for (int i = threadIdx.y * kBlockX + threadIdx.x; i < th * tw;
-         i += kBlockX * kBlockY) {
-      const float z = scene[(size_t)(ty0 + i / tw) * wp + tx0 + i % tw];
-      m |= (z > 0.0f && z < 1.0f);
-    }
-    mesh_tile = __syncthreads_or(m) != 0;
-  }
-  if (px >= wp || py >= hp) return;
-  const int t = (py / th) * tiles_x + px / tw;
+  const int t = (blockIdx.y * kBlockY / th) * tiles_x
+              + blockIdx.x * kBlockX / tw;
   const int count = counts[t];
+  const int* list = tlist + (size_t)t * n;
+  const bool mesh_tile = kDepth && mesh_flag[t] != 0;
   const float xg = ((float)px + 0.5f) / width * 2.0f - 1.0f;
   const float yg =
       -(((float)(py + tile_row0 * th) + 0.5f) / height * 2.0f - 1.0f);
@@ -175,91 +210,103 @@ __global__ void tile_composite_kernel(
     lr[k] = lg[k] = lb[k] = la[k] = 0.0f;
   }
 
-  for (int i = 0; i < count; ++i) {
-    const int vid = tlist[(size_t)t * n + i];
-    const float* vf = vol_flt + (size_t)vid * 21;
-    // ray / box exit in the volume's local frame
-    const float dlx = vf[0] * xg + vf[3] * yg + vf[6];
-    const float dly = vf[1] * xg + vf[4] * yg + vf[7];
-    const float dlz = vf[2] * xg + vf[5] * yg + vf[8];
-    float ix, ox, iy, oy, iz, oz;
-    slab(vf[9], dlx, &ix, &ox);
-    slab(vf[10], dly, &iy, &oy);
-    slab(vf[11], dlz, &iz, &oz);
-    const float t_near = fmaxf(fmaxf(ix, iy), iz);
-    const float t_far = fminf(fminf(ox, oy), oz);
-    const bool hit = t_far > fmaxf(t_near, 0.0f);
-    const float qx = vf[9] + dlx * t_far;
-    const float qy = vf[10] + dly * t_far;
-    const float qz = vf[11] + dlz * t_far;
-    const float ax = fabsf(qx), ay = fabsf(qy), az = fabsf(qz);
-    const bool is_x = (ax >= ay) && (ax >= az);
-    const bool is_y = !is_x && (ay >= az);
-    const int face = is_x ? (qx >= 0.0f ? 0 : 1)
-                          : (is_y ? (qy >= 0.0f ? 2 : 3)
-                                  : (qz >= 0.0f ? 4 : 5));
-    const float hz = qx * vf[12] + qy * vf[13] + qz * vf[14] + vf[15];
-    const float hw = qx * vf[16] + qy * vf[17] + qz * vf[18] + vf[19];
-    const float exit_z = hz / fmaxf(hw, 1e-20f);
-    const bool valid = hit && (hw > 0.0f) && (exit_z <= scene_z) &&
-                       (exit_z > 0.0f);
-    if (!valid) continue;
-
-    // Catmull-Smith two-pass warp of the exit face (rows v0, v0 + 1)
-    const float hi = vf[20] - 1.0f;
-    const float* fq = face_flt + ((size_t)vid * 6 + face) * 9;
-    const float dq = fq[6] * xg + fq[7] * yg + fq[8];
-    const float vt = mv::clampf(finite((fq[3] * xg + fq[4] * yg + fq[5])
-                                       / safe(dq)), 0.0f, hi);
-    const int v0 = (int)floorf(vt);
-    const T* img = color + ((size_t)vid * 6 + face) * 4 * s * s;
-    const float* dimg = kDepth ? depth + ((size_t)vid * 6 + face) * s * s
-                               : nullptr;
-    float wv0 = fmaxf(1.0f - fabsf(vt - (float)v0), 0.0f);
-    RowTaps taps = row_taps(s, v0, xg, fq, hi);
-    float w_sum = 0.0f;
-    if (kDepth && mesh_tile) {
-      const float wd = fmaxf(1.0f - 0.5f * fabsf(d_scene
-                                                 - row_depth(dimg, taps)),
-                             0.0f);
-      wv0 = wv0 * fmaxf(wd, 1e-6f);
-      w_sum = wv0;
+  for (int i0 = 0; i0 < count; i0 += kChunk) {
+    const int m = min(kChunk, count - i0);
+    __syncthreads();  // the previous chunk's records have been read
+    for (int j = tid; j < m * kRecF; j += kThreads) {
+      const int e = j / kRecF, f = j - e * kRecF;
+      const int vid = list[i0 + e];
+      rec[j] = f < kVolF ? vol_flt[(size_t)vid * kVolF + f]
+                         : face_flt[(size_t)vid * 54 + (f - kVolF)];
     }
-    float4 c = row_color(img, taps);
-    float rr = c.x * wv0, gg = c.y * wv0, bb = c.z * wv0, aa = c.w * wv0;
-    if ((float)(v0 + 1) <= hi) {
-      float wv1 = fmaxf(1.0f - fabsf(vt - (float)(v0 + 1)), 0.0f);
-      taps = row_taps(s, v0 + 1, xg, fq, hi);
+    if (tid < m) rec_vid[tid] = list[i0 + tid];
+    __syncthreads();
+
+    for (int e = 0; e < m; ++e) {
+      const float* vf = rec + e * kRecF;
+      // ray / box exit in the volume's local frame
+      const float dlx = vf[0] * xg + vf[3] * yg + vf[6];
+      const float dly = vf[1] * xg + vf[4] * yg + vf[7];
+      const float dlz = vf[2] * xg + vf[5] * yg + vf[8];
+      float ix, ox, iy, oy, iz, oz;
+      slab(vf[9], dlx, &ix, &ox);
+      slab(vf[10], dly, &iy, &oy);
+      slab(vf[11], dlz, &iz, &oz);
+      const float t_near = fmaxf(fmaxf(ix, iy), iz);
+      const float t_far = fminf(fminf(ox, oy), oz);
+      const bool hit = t_far > fmaxf(t_near, 0.0f);
+      const float qx = vf[9] + dlx * t_far;
+      const float qy = vf[10] + dly * t_far;
+      const float qz = vf[11] + dlz * t_far;
+      const float ax = fabsf(qx), ay = fabsf(qy), az = fabsf(qz);
+      const bool is_x = (ax >= ay) && (ax >= az);
+      const bool is_y = !is_x && (ay >= az);
+      const int face = is_x ? (qx >= 0.0f ? 0 : 1)
+                            : (is_y ? (qy >= 0.0f ? 2 : 3)
+                                    : (qz >= 0.0f ? 4 : 5));
+      const float hz = qx * vf[12] + qy * vf[13] + qz * vf[14] + vf[15];
+      const float hw = qx * vf[16] + qy * vf[17] + qz * vf[18] + vf[19];
+      const float exit_z = hz / fmaxf(hw, 1e-20f);
+      const bool valid = hit && (hw > 0.0f) && (exit_z <= scene_z) &&
+                         (exit_z > 0.0f);
+      if (!valid) continue;
+
+      // Catmull-Smith two-pass warp of the exit face (rows v0, v0 + 1)
+      const int vid = rec_vid[e];
+      const float hi = vf[20] - 1.0f;
+      const float* fq = vf + kVolF + face * 9;
+      const float dq = fq[6] * xg + fq[7] * yg + fq[8];
+      const float vt = mv::clampf(finite((fq[3] * xg + fq[4] * yg + fq[5])
+                                         / safe(dq)), 0.0f, hi);
+      const int v0 = (int)floorf(vt);
+      const T* img = color + ((size_t)vid * 6 + face) * 4 * s * s;
+      const float* dimg = kDepth ? depth + ((size_t)vid * 6 + face) * s * s
+                                 : nullptr;
+      float wv0 = fmaxf(1.0f - fabsf(vt - (float)v0), 0.0f);
+      RowTaps taps = row_taps(s, v0, xg, fq, hi);
+      float w_sum = 0.0f;
       if (kDepth && mesh_tile) {
         const float wd = fmaxf(
             1.0f - 0.5f * fabsf(d_scene - row_depth(dimg, taps)), 0.0f);
-        wv1 = wv1 * fmaxf(wd, 1e-6f);
-        w_sum += wv1;
+        wv0 = wv0 * fmaxf(wd, 1e-6f);
+        w_sum = wv0;
       }
-      c = row_color(img, taps);
-      rr += c.x * wv1;
-      gg += c.y * wv1;
-      bb += c.z * wv1;
-      aa += c.w * wv1;
-    }
-    if (kDepth && mesh_tile) {
-      const float inv = 1.0f / fmaxf(w_sum, 1e-20f);
-      rr *= inv;
-      gg *= inv;
-      bb *= inv;
-      aa *= inv;
-    }
-    aa = fminf(aa, 1.0f);  // `PSCube.hlsl:57` store-if semantics
-    if (!(aa > 0.0f)) continue;
+      float4 c = row_color(img, taps);
+      float rr = c.x * wv0, gg = c.y * wv0, bb = c.z * wv0, aa = c.w * wv0;
+      if ((float)(v0 + 1) <= hi) {
+        float wv1 = fmaxf(1.0f - fabsf(vt - (float)(v0 + 1)), 0.0f);
+        taps = row_taps(s, v0 + 1, xg, fq, hi);
+        if (kDepth && mesh_tile) {
+          const float wd = fmaxf(
+              1.0f - 0.5f * fabsf(d_scene - row_depth(dimg, taps)), 0.0f);
+          wv1 = wv1 * fmaxf(wd, 1e-6f);
+          w_sum += wv1;
+        }
+        c = row_color(img, taps);
+        rr += c.x * wv1;
+        gg += c.y * wv1;
+        bb += c.z * wv1;
+        aa += c.w * wv1;
+      }
+      if (kDepth && mesh_tile) {
+        const float inv = 1.0f / fmaxf(w_sum, 1e-20f);
+        rr *= inv;
+        gg *= inv;
+        bb *= inv;
+        aa *= inv;
+      }
+      aa = fminf(aa, 1.0f);  // `PSCube.hlsl:57` store-if semantics
+      if (!(aa > 0.0f)) continue;
 
-    // streaming nearest-K insert; ties keep the earlier-listed volume
-    float zn = exit_z;
+      // streaming nearest-K insert; ties keep the earlier-listed volume
+      float zn = exit_z;
 #pragma unroll
-    for (int k = 0; k < kMaxLayers; ++k) {
-      if (k < k_layers && zn < lz[k]) {
-        float tz = lz[k], tr = lr[k], tg = lg[k], tb = lb[k], ta = la[k];
-        lz[k] = zn; lr[k] = rr; lg[k] = gg; lb[k] = bb; la[k] = aa;
-        zn = tz; rr = tr; gg = tg; bb = tb; aa = ta;
+      for (int k = 0; k < kMaxLayers; ++k) {
+        if (k < k_layers && zn < lz[k]) {
+          float tz = lz[k], tr = lr[k], tg = lg[k], tb = lb[k], ta = la[k];
+          lz[k] = zn; lr[k] = rr; lg[k] = gg; lb[k] = bb; la[k] = aa;
+          zn = tz; rr = tr; gg = tg; bb = tb; aa = ta;
+        }
       }
     }
   }
@@ -286,17 +333,23 @@ __global__ void tile_composite_kernel(
 template <typename T, bool kDepth>
 cudaError_t launch(const void* color, const void* depth, const void* tlist,
                    const void* counts, const void* vol_flt,
-                   const void* face_flt, const void* scene, void* out, int n,
-                   int s, int hp, int wp, int th, int tw, int tiles_x,
-                   int k_layers, int width, int height, int tile_row0,
-                   cudaStream_t stream) {
+                   const void* face_flt, const void* scene, void* flags,
+                   void* out, int n, int s, int hp, int wp, int th, int tw,
+                   int tiles_x, int k_layers, int width, int height,
+                   int tile_row0, cudaStream_t stream) {
+  if (kDepth) {
+    mesh_tile_kernel<<<(hp / th) * tiles_x, kThreads, 0, stream>>>(
+        (const float*)scene, (int*)flags, wp, th, tw, tiles_x);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   dim3 block(kBlockX, kBlockY);
-  dim3 grid((wp + kBlockX - 1) / kBlockX, (hp + kBlockY - 1) / kBlockY);
+  dim3 grid(wp / kBlockX, hp / kBlockY);
   tile_composite_kernel<T, kDepth><<<grid, block, 0, stream>>>(
       (const T*)color, (const float*)depth, (const int*)tlist,
       (const int*)counts, (const float*)vol_flt, (const float*)face_flt,
-      (const float*)scene, (float*)out, n, s, hp, wp, th, tw, tiles_x,
-      k_layers, width, height, tile_row0);
+      (const float*)scene, (const int*)flags, (float*)out, n, s, hp, wp, th,
+      tw, tiles_x, k_layers, width, height, tile_row0);
   return cudaGetLastError();
 }
 
@@ -304,19 +357,33 @@ template <bool kDepth>
 cudaError_t launch_typed(int is_bf16, const void* color, const void* depth,
                          const void* tlist, const void* counts,
                          const void* vol_flt, const void* face_flt,
-                         const void* scene, void* out, int n, int s, int hp,
-                         int wp, int th, int tw, int tiles_x, int k_layers,
-                         int width, int height, int tile_row0,
+                         const void* scene, void* flags, void* out, int n,
+                         int s, int hp, int wp, int th, int tw, int tiles_x,
+                         int k_layers, int width, int height, int tile_row0,
                          cudaStream_t st) {
   return is_bf16
       ? launch<__nv_bfloat16, kDepth>(color, depth, tlist, counts, vol_flt,
-                                      face_flt, scene, out, n, s, hp, wp, th,
-                                      tw, tiles_x, k_layers, width, height,
-                                      tile_row0, st)
+                                      face_flt, scene, flags, out, n, s, hp,
+                                      wp, th, tw, tiles_x, k_layers, width,
+                                      height, tile_row0, st)
       : launch<float, kDepth>(color, depth, tlist, counts, vol_flt,
-                              face_flt, scene, out, n, s, hp, wp, th, tw,
-                              tiles_x, k_layers, width, height, tile_row0,
-                              st);
+                              face_flt, scene, flags, out, n, s, hp, wp, th,
+                              tw, tiles_x, k_layers, width, height,
+                              tile_row0, st);
+}
+
+template <typename K>
+cudaError_t kernel_info(K kernel, int* out) {
+  cudaFuncAttributes fa;
+  int per_sm = 0;
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, 0);
+  if (err != cudaSuccess) return err;
+  out[0] = fa.numRegs; out[1] = per_sm; out[2] = kThreads;
+  out[3] = (int)fa.sharedSizeBytes; out[4] = (int)fa.localSizeBytes;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -324,27 +391,49 @@ cudaError_t launch_typed(int is_bf16, const void* color, const void* depth,
 // color (N, 6, 4, S, S) in the storage type (bf16 when is_bf16, else f32),
 // pre-swapped; depth (N, 6, S, S) f32 view distance, swapped like color,
 // or null for the plain warp; tlist (T, N) i32; counts (T,) i32; vol_flt
-// (N, 21) f32; face_flt (N, 6, 9) f32; scene (Hp, Wp) f32 clip depth; out
-// (4, Hp, Wp). With tile_row0 > 0, (Hp, Wp) is a band of tile rows that
-// starts tile_row0 tile rows down a screen of `height` pixel rows.
+// (N, 21) f32; face_flt (N, 6, 9) f32; scene (Hp, Wp) f32 clip depth,
+// 16-byte aligned; flags (T,) i32 scratch for the per-tile mesh vote
+// (written and read only with depth); out (4, Hp, Wp). With tile_row0 >
+// 0, (Hp, Wp) is a band of tile rows that starts tile_row0 tile rows down
+// a screen of `height` pixel rows.
 extern "C" int mv_tile_composite(const void* color, const void* depth,
                                  const void* tlist, const void* counts,
                                  const void* vol_flt, const void* face_flt,
-                                 const void* scene, void* out, int n, int s,
-                                 int hp, int wp, int th, int tw, int tiles_x,
-                                 int k_layers, int width, int height,
-                                 int tile_row0, int is_bf16, void* stream) {
+                                 const void* scene, void* flags, void* out,
+                                 int n, int s, int hp, int wp, int th, int tw,
+                                 int tiles_x, int k_layers, int width,
+                                 int height, int tile_row0, int is_bf16,
+                                 void* stream) {
   if (k_layers < 1 || k_layers > kMaxLayers) return (int)cudaErrorInvalidValue;
   if (th % kBlockY != 0 || tw % kBlockX != 0) return (int)cudaErrorInvalidValue;
   if (hp % th != 0 || wp % tw != 0) return (int)cudaErrorInvalidValue;
   if (tile_row0 < 0) return (int)cudaErrorInvalidValue;
+  if (depth && (flags == nullptr || ((uintptr_t)scene & 15) != 0))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = depth
       ? launch_typed<true>(is_bf16, color, depth, tlist, counts, vol_flt,
-                           face_flt, scene, out, n, s, hp, wp, th, tw,
+                           face_flt, scene, flags, out, n, s, hp, wp, th, tw,
                            tiles_x, k_layers, width, height, tile_row0, st)
       : launch_typed<false>(is_bf16, color, depth, tlist, counts, vol_flt,
-                            face_flt, scene, out, n, s, hp, wp, th, tw,
-                            tiles_x, k_layers, width, height, tile_row0, st);
+                            face_flt, scene, flags, out, n, s, hp, wp, th,
+                            tw, tiles_x, k_layers, width, height, tile_row0,
+                            st);
+  return (int)err;
+}
+
+// out[0..4] = registers per thread, CTAs per SM, threads per CTA, static
+// shared memory (bytes) and local (spill) memory per thread (bytes) of the
+// composite kernel of that storage type and variant
+extern "C" int mv_tile_composite_info(int is_bf16, int with_depth,
+                                      int* out) {
+  cudaError_t err;
+  if (is_bf16)
+    err = with_depth
+        ? kernel_info(tile_composite_kernel<__nv_bfloat16, true>, out)
+        : kernel_info(tile_composite_kernel<__nv_bfloat16, false>, out);
+  else
+    err = with_depth ? kernel_info(tile_composite_kernel<float, true>, out)
+                     : kernel_info(tile_composite_kernel<float, false>, out);
   return (int)err;
 }

@@ -54,8 +54,19 @@
 // empty body, 96 cluster barriers, takes 0.066 ms at every cluster size,
 // 0.69 us a barrier: the floor of the chain. One CTA per volume with the
 // density read inside the chain took 0.56 (0.85) and 1.00 (1.28) ms.
-// The advect-multiply (B4) is one CTA per volume with the whole plane in
-// its shared memory; it shares the taps with the scan.
+//
+// The advect-multiply (B4) is a third instantiation of the same banded
+// scan (kMode = kAdvect): the carry starts from t_in's band instead of 1,
+// the ring streams here_k instead of the density (no attenuation), and
+// the chain's step is the shear alone, t <- B(t). The product out_k =
+// here_k * t leaves the chain: each thread forms it between the slice's
+// barrier arrive and wait from its own carry texels and its own ring
+// copies, and stores it to device memory itself (measured: bulk copies
+// from stages, published one slice later, were 1% slower). Measured
+// (NVIDIA H100, 700 W, device time): one volume 0.14 ms, 8 volumes 0.14,
+// 64 volumes 0.29; the chain floor is the scan's, 0.069. The earlier
+// port, one CTA of 512 threads per volume with here_k read inside the
+// chain, took 0.33 / 0.73 / 0.82.
 //
 // B3 with the mesh's shadow map (has_sm=True). The TPU kernel carries
 // three planes, s, sm and z, and compares B(sm) - z_k per slice against
@@ -84,8 +95,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr float kAbsorption = 0.8f;
-constexpr int kThreads = 512;      // B4: threads of its one CTA per volume
-constexpr int kRing = 4;           // self scan: density slices in flight
+constexpr int kRing = 4;           // input slices in flight
 constexpr int kHere = 3;           // self scan: output stages
 constexpr int kMaxScanThreads = 512;
 constexpr int kUnroll = 4;         // self scan: rows of a thread in flight
@@ -123,18 +133,6 @@ __device__ __forceinline__ float tap_lerp_rn(float t00, float t01, float t10,
   float top = __fadd_rn(__fmul_rn(t00, gu), __fmul_rn(t01, fu));
   float bot = __fadd_rn(__fmul_rn(t10, gu), __fmul_rn(t11, fu));
   return __fadd_rn(__fmul_rn(top, gv), __fmul_rn(bot, fv));
-}
-
-// B(x)[a, d] of a whole plane x (row-major (L, L)) in this CTA's shared
-// memory
-__device__ __forceinline__ float bshift_at(const float* x, int l, int a,
-                                           int d, const int* v0,
-                                           const float* wv, const int* u0,
-                                           const float* wu) {
-  int r0 = v0[a], c0 = u0[d];
-  int r1 = min(r0 + 1, l - 1), c1 = min(c0 + 1, l - 1);
-  return tap_lerp(x[r0 * l + c0], x[r0 * l + c1], x[r1 * l + c0],
-                  x[r1 * l + c1], wu[d], wv[a]);
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -198,8 +196,18 @@ __device__ __forceinline__ void to_atten(float* slot, int rr, int row_end,
   }
 }
 
-// B3 (kSm = false) and B3' (kSm = true: the shadow plane e banded and
-// ping-ponged beside s; e0, dz_slice and soft are unused without it).
+// The three launches of the banded scan
+enum : int { kScan = 0, kScanSm = 1, kAdvect = 2 };
+
+// output stages of a launch (the advect-multiply stores directly)
+__host__ __device__ constexpr int stages_of(int mode) {
+  return mode == kAdvect ? 0 : kHere;
+}
+
+// B3 (kScan), B3' (kScanSm: the shadow plane e banded and ping-ponged
+// beside s; e0, dz_slice and soft are unused without it) and B4
+// (kAdvect: src is here, the carry starts from t_in, out is the product;
+// f_corr and s_out are unused, and `bulk` is 0).
 // Grid: `cluster` CTAs per volume, one cluster each; CTA `rank` owns rows
 // [rank * band, min(L, (rank + 1) * band)). Thread t works on column
 // t % L of rows t / L, t / L + rpp, ... of the band (rpp rows a pass), so
@@ -207,20 +215,23 @@ __device__ __forceinline__ void to_atten(float* slot, int rr, int row_end,
 // once. kBody = false leaves only the per-slice barrier: the floor of the
 // chain, for the measurement.
 // Shared layout, in floats, with bl = band * L:
-//   here stages (kHere * bl) | density ring (kRing * bl) | cur | nxt
-//   [| ecur | enxt] (bl each) | v0 | wv | u0 | wu | per output row: owner
-//   and offset of its two tap rows (L each)
-template <bool kSm, bool kBody>
-__global__ void self_scan_kernel(const float* __restrict__ rho,
+//   output stages (stages_of(kMode) * bl) | input ring (kRing * bl) | cur
+//   | nxt [| ecur | enxt] (bl each) | v0 | wv | u0 | wu | per output row:
+//   owner and offset of its two tap rows (L each)
+template <int kMode, bool kBody>
+__global__ void self_scan_kernel(const float* __restrict__ src,
                                  const float* __restrict__ du,
                                  const float* __restrict__ dv,
                                  const float* __restrict__ f_corr,
                                  const float* __restrict__ e0,
                                  const float* __restrict__ dz_slice,
                                  const float* __restrict__ soft,
-                                 float* __restrict__ here,
+                                 const float* __restrict__ t_in,
+                                 float* __restrict__ out,
                                  float* __restrict__ s_out, int l, int band,
                                  int rpp, int bulk) {
+  constexpr bool kSm = kMode == kScanSm;
+  constexpr bool kAdv = kMode == kAdvect;
   extern __shared__ __align__(16) float scan_mem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = (int)cluster.num_blocks();
@@ -233,7 +244,7 @@ __global__ void self_scan_kernel(const float* __restrict__ rho,
   const int rows = r_hi - r_lo, n_tex = rows * l;
   constexpr int kPlanes = kSm ? 4 : 2;
   float* hst = scan_mem;
-  float* ring = hst + kHere * bl;
+  float* ring = hst + stages_of(kMode) * bl;
   float* cur = ring + kRing * bl;
   float* nxt = cur + bl;
   float* ecur = nxt + bl;
@@ -273,16 +284,16 @@ __global__ void self_scan_kernel(const float* __restrict__ rho,
   }
   for (int ar = rr; ar < row_end; ar += rpp) {
     const int i = ar * l + d;
-    cur[i] = 1.0f;
+    cur[i] = kAdv ? t_in[(size_t)c * plane + r_lo * l + i] : 1.0f;
     if constexpr (kSm) ecur[i] = e0[(size_t)c * plane + r_lo * l + i];
   }
   const int c0 = u0[d], c1 = min(c0 + 1, l - 1);
   const float fu = wu[d];
-  const float f = f_corr[c];
+  const float f = kAdv ? 0.0f : f_corr[c];
   const float dz = kSm ? dz_slice[c] : 0.0f, sf = kSm ? soft[c] : 1.0f;
   const size_t vol = (size_t)c * l * plane + (size_t)r_lo * l;
-  const float* rho_b = rho + vol;     // this band of slice 0
-  float* here_b = here + vol;
+  const float* src_b = src + vol;     // this band of slice 0
+  float* out_b = out + vol;
 
   // fill the ring: slices 0 .. kRing-1, one cp.async group each
 #pragma unroll
@@ -290,17 +301,17 @@ __global__ void self_scan_kernel(const float* __restrict__ rho,
     if (s < l)
       for (int ar = rr; ar < row_end; ar += rpp)
         cp_async4(ring + s * bl + ar * l + d,
-                  rho_b + (size_t)s * plane + ar * l + d);
+                  src_b + (size_t)s * plane + ar * l + d);
     cp_async_commit();
   }
   cp_async_wait<kRing - 1>();          // slice 0 is here
-  to_atten(ring, rr, row_end, rpp, l, d, f);
+  if constexpr (!kAdv) to_atten(ring, rr, row_end, rpp, l, d, f);
   cluster.sync();   // tables, cur and ecur of every band are written
 
   for (int k = 0; k < l; ++k) {
     const float* a_k = ring + (k % kRing) * bl;
     float* hs = hst + (k % kHere) * bl;
-    float* here_k = here_b + (size_t)k * plane;
+    float* out_k = out_b + (size_t)k * plane;
     const float dzk = k == 0 ? 0.5f * dz : dz;
     // the chain: one band of taps on the carry of slice k - 1, kUnroll
     // rows at a time: all their (remote) reads first, then the arithmetic
@@ -340,17 +351,22 @@ __global__ void self_scan_kernel(const float* __restrict__ rho,
           const int i = ar * l + d;
           const float sh = tap_lerp(s00[u], s01[u], s10[u], s11[u], fu,
                                     fv[u]);
-          float out = sh;
-          if constexpr (kSm) {
-            const float e = __fsub_rn(
-                tap_lerp_rn(e00[u], e01[u], e10[u], e11[u], fu, fv[u]), dzk);
-            enxt[i] = e;
-            const float lit = fminf(
-                fmaxf(__fadd_rn(__fdiv_rn(e, sf), 1.0f), 0.0f), 1.0f);
-            out = sh * lit;
+          if constexpr (kAdv) {
+            nxt[i] = sh;
+          } else {
+            float res = sh;
+            if constexpr (kSm) {
+              const float e = __fsub_rn(
+                  tap_lerp_rn(e00[u], e01[u], e10[u], e11[u], fu, fv[u]),
+                  dzk);
+              enxt[i] = e;
+              const float lit = fminf(
+                  fmaxf(__fadd_rn(__fdiv_rn(e, sf), 1.0f), 0.0f), 1.0f);
+              res = sh * lit;
+            }
+            if (bulk) hs[i] = res; else out_k[i] = res;
+            nxt[i] = sh * a_k[i];
           }
-          if (bulk) hs[i] = out; else here_k[i] = out;
-          nxt[i] = sh * a_k[i];
         }
       }
     }
@@ -361,80 +377,53 @@ __global__ void self_scan_kernel(const float* __restrict__ rho,
     }
     // a cluster of one CTA needs only the CTA's own, cheaper barrier
     if (cs > 1) cluster_arrive();
-    // off the chain: refill the ring slot just used, and turn the next
-    // slice's density into its attenuation
+    // off the chain: the advect's product from this thread's own carry
+    // texels and ring copies; then refill the ring slot just used, and
+    // (the scan) turn the next slice's density into its attenuation
+    if constexpr (kAdv)
+      for (int ar = rr; ar < row_end; ar += rpp) {
+        const int i = ar * l + d;
+        out_k[i] = nxt[i] * a_k[i];
+      }
     if (k + kRing < l)
       for (int ar = rr; ar < row_end; ar += rpp)
         cp_async4(ring + (k % kRing) * bl + ar * l + d,
-                  rho_b + (size_t)(k + kRing) * plane + ar * l + d);
+                  src_b + (size_t)(k + kRing) * plane + ar * l + d);
     cp_async_commit();
     cp_async_wait<kRing - 1>();        // slice k + 1 is here
-    if (k + 1 < l)
-      to_atten(ring + ((k + 1) % kRing) * bl, rr, row_end, rpp, l, d, f);
+    if constexpr (!kAdv)
+      if (k + 1 < l)
+        to_atten(ring + ((k + 1) % kRing) * bl, rr, row_end, rpp, l, d, f);
     if (cs > 1) cluster_wait(); else __syncthreads();
     if (bulk && tid == 0 && n_tex > 0)
-      bulk_store(here_k, hs, (unsigned)n_tex * sizeof(float));
+      bulk_store(out_k, hs, (unsigned)n_tex * sizeof(float));
     float* t = cur; cur = nxt; nxt = t;
     if constexpr (kSm) { t = ecur; ecur = enxt; enxt = t; }
   }
-  for (int ar = rr; ar < row_end; ar += rpp)
-    s_out[(size_t)c * plane + r_lo * l + ar * l + d] = cur[ar * l + d];
+  if constexpr (!kAdv)
+    for (int ar = rr; ar < row_end; ar += rpp)
+      s_out[(size_t)c * plane + r_lo * l + ar * l + d] = cur[ar * l + d];
   if (bulk && tid == 0) bulk_wait_all();
-}
-
-__global__ void advect_mul_kernel(const float* __restrict__ here,
-                                  const float* __restrict__ t_in,
-                                  const float* __restrict__ du,
-                                  const float* __restrict__ dv,
-                                  float* __restrict__ out, int l) {
-  extern __shared__ float smem[];
-  const int c = blockIdx.x;
-  const int plane = l * l;
-  float* cur = smem;
-  float* nxt = smem + plane;
-  int* v0 = reinterpret_cast<int*>(smem + 2 * plane);
-  float* wv = smem + 2 * plane + l;
-  int* u0 = reinterpret_cast<int*>(smem + 2 * plane + 2 * l);
-  float* wu = smem + 2 * plane + 3 * l;
-
-  setup_taps(l, dv[c], du[c], v0, wv, u0, wu);
-  for (int i = threadIdx.x; i < plane; i += blockDim.x)
-    cur[i] = t_in[(size_t)c * plane + i];
-  __syncthreads();
-
-  const size_t vol = (size_t)c * l * plane;
-  for (int k = 0; k < l; ++k) {
-    const float* here_k = here + vol + (size_t)k * plane;
-    float* out_k = out + vol + (size_t)k * plane;
-    for (int i = threadIdx.x; i < plane; i += blockDim.x) {
-      int a = i / l, d = i - a * l;
-      float t = bshift_at(cur, l, a, d, v0, wv, u0, wu);
-      nxt[i] = t;
-      out_k[i] = here_k[i] * t;
-    }
-    __syncthreads();
-    float* t = cur; cur = nxt; nxt = t;
-  }
 }
 
 // ---- host side -----------------------------------------------------------
 
-// the launch shape of a self scan, chosen from the cohort and the grid
+// the launch shape of a banded scan, chosen from the cohort and the grid
 struct ScanPlan {
   int cluster, band, rpp, threads, active_clusters;
   size_t smem;
 };
 
-size_t scan_smem_bytes(int l, int band, bool sm) {
-  return ((size_t)(kHere + kRing + (sm ? 4 : 2)) * band * l + 8 * l)
-      * sizeof(float);
+size_t scan_smem_bytes(int l, int band, int mode) {
+  const int planes = stages_of(mode) + kRing + (mode == kScanSm ? 4 : 2);
+  return ((size_t)planes * band * l + 8 * l) * sizeof(float);
 }
 
-ScanPlan scan_shape(int cs, int l, bool sm) {
+ScanPlan scan_shape(int cs, int l, int mode) {
   ScanPlan p{};
   p.cluster = cs;
   p.band = (l + cs - 1) / cs;
-  p.smem = scan_smem_bytes(l, p.band, sm);
+  p.smem = scan_smem_bytes(l, p.band, mode);
   // rows a pass: as many as kMaxScanThreads hold, evened over the passes
   const int fit = kMaxScanThreads / l > 0 ? kMaxScanThreads / l : 1;
   const int passes = (p.band + fit - 1) / fit;
@@ -478,7 +467,7 @@ void scan_config(const ScanPlan& p, int c, cudaStream_t stream,
 // on an SM; if no size does, the smallest that fits. `force` > 0 takes
 // that cluster size (the floor measurement). Decided from the occupancy
 // numbers before the launch, cached per (c, l).
-template <bool kSm>
+template <int kMode>
 cudaError_t scan_plan(int c, int l, int force, ScanPlan* out) {
   static std::mutex mu;
   static std::map<std::pair<int, int>, ScanPlan> cache;
@@ -487,9 +476,9 @@ cudaError_t scan_plan(int c, int l, int force, ScanPlan* out) {
   cudaError_t err;
   if (max_smem == 0) {
     int dev = 0;
-    err = allow_max_smem(self_scan_kernel<kSm, true>, &max_smem);
+    err = allow_max_smem(self_scan_kernel<kMode, true>, &max_smem);
     if (err == cudaSuccess)
-      err = allow_max_smem(self_scan_kernel<kSm, false>, &max_smem);
+      err = allow_max_smem(self_scan_kernel<kMode, false>, &max_smem);
     if (err == cudaSuccess) err = cudaGetDevice(&dev);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
@@ -505,13 +494,13 @@ cudaError_t scan_plan(int c, int l, int force, ScanPlan* out) {
   for (int cs = 8; cs >= 1; cs /= 2) {
     if (force > 0 && cs != force) continue;
     if (force == 0 && cs > 1 && l * l / cs < kMinBandTexels) continue;
-    ScanPlan p = scan_shape(cs, l, kSm);
+    ScanPlan p = scan_shape(cs, l, kMode);
     if (p.smem > (size_t)max_smem) continue;
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
     scan_config(p, c, nullptr, &cfg, &attr);
     err = cudaOccupancyMaxActiveClusters(&p.active_clusters,
-                                         self_scan_kernel<kSm, true>, &cfg);
+                                         self_scan_kernel<kMode, true>, &cfg);
     if (err != cudaSuccess) return err;
     if (p.active_clusters < 1) continue;
     plan = p;
@@ -523,31 +512,52 @@ cudaError_t scan_plan(int c, int l, int force, ScanPlan* out) {
   return cudaSuccess;
 }
 
-template <bool kSm, bool kBody>
-cudaError_t launch_scan(const void* rho, const void* du, const void* dv,
+template <int kMode, bool kBody>
+cudaError_t launch_scan(const void* src, const void* du, const void* dv,
                         const void* f_corr, const void* e0,
-                        const void* dz_slice, const void* soft, void* here,
-                        void* s_out, int c, int l, int force,
-                        cudaStream_t stream) {
+                        const void* dz_slice, const void* soft,
+                        const void* t_in, void* out, void* s_out, int c,
+                        int l, int force, cudaStream_t stream) {
   if (c == 0) return cudaSuccess;
   ScanPlan p;
-  cudaError_t err = scan_plan<kSm>(c, l, force, &p);
+  cudaError_t err = scan_plan<kMode>(c, l, force, &p);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   scan_config(p, c, stream, &cfg, &attr);
   err = cudaLaunchKernelEx(
-      &cfg, self_scan_kernel<kSm, kBody>, (const float*)rho,
+      &cfg, self_scan_kernel<kMode, kBody>, (const float*)src,
       (const float*)du, (const float*)dv, (const float*)f_corr,
       (const float*)e0, (const float*)dz_slice, (const float*)soft,
-      (float*)here, (float*)s_out, l, p.band, p.rpp, (int)(l % 4 == 0));
+      (const float*)t_in, (float*)out, (float*)s_out, l, p.band, p.rpp,
+      (int)(kMode != kAdvect && l % 4 == 0));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// `planes` (L, L) f32 carries plus the four tap tables (B4)
-size_t smem_bytes(int l, int planes = 2) {
-  return (size_t)(planes * l * l + 4 * l) * sizeof(float);
+template <int kMode>
+cudaError_t launch_floor(int c, int l, int cluster, cudaStream_t stream) {
+  return launch_scan<kMode, false>(nullptr, nullptr, nullptr, nullptr,
+                                   nullptr, nullptr, nullptr, nullptr,
+                                   nullptr, nullptr, c, l, cluster, stream);
+}
+
+template <int kMode>
+cudaError_t scan_info(int c, int l, int* out) {
+  ScanPlan p;
+  cudaError_t err = scan_plan<kMode>(c, l, 0, &p);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes fa;
+  int per_sm = 0;
+  err = cudaFuncGetAttributes(&fa, self_scan_kernel<kMode, true>);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, self_scan_kernel<kMode, true>, p.threads, p.smem);
+  if (err != cudaSuccess) return err;
+  out[0] = p.cluster; out[1] = p.band; out[2] = p.threads;
+  out[3] = (int)p.smem; out[4] = fa.numRegs; out[5] = per_sm;
+  out[6] = p.active_clusters; out[7] = (int)fa.sharedSizeBytes;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -556,9 +566,9 @@ extern "C" int mv_light_self_scan(const void* rho, const void* du,
                                   const void* dv, const void* f_corr,
                                   void* here, void* s_out, int c, int l,
                                   void* stream) {
-  return (int)launch_scan<false, true>(rho, du, dv, f_corr, nullptr, nullptr,
-                                       nullptr, here, s_out, c, l, 0,
-                                       (cudaStream_t)stream);
+  return (int)launch_scan<kScan, true>(rho, du, dv, f_corr, nullptr,
+                                       nullptr, nullptr, nullptr, here,
+                                       s_out, c, l, 0, (cudaStream_t)stream);
 }
 
 extern "C" int mv_light_self_scan_sm(const void* rho, const void* du,
@@ -567,64 +577,44 @@ extern "C" int mv_light_self_scan_sm(const void* rho, const void* du,
                                      const void* soft, void* here,
                                      void* s_out, int c, int l,
                                      void* stream) {
-  return (int)launch_scan<true, true>(rho, du, dv, f_corr, e0, dz_slice,
-                                      soft, here, s_out, c, l, 0,
-                                      (cudaStream_t)stream);
-}
-
-// The scan's launch of (c, l) with an empty body: L cluster barriers and
-// nothing else, the floor of the dependent chain (for the measurement).
-// `cluster` > 0 takes that cluster size in place of the planned one.
-extern "C" int mv_light_scan_floor(int c, int l, int has_sm, int cluster,
-                                   void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  return (int)(has_sm
-      ? launch_scan<true, false>(nullptr, nullptr, nullptr, nullptr, nullptr,
-                                 nullptr, nullptr, nullptr, nullptr, c, l,
-                                 cluster, st)
-      : launch_scan<false, false>(nullptr, nullptr, nullptr, nullptr,
-                                  nullptr, nullptr, nullptr, nullptr, nullptr,
-                                  c, l, cluster, st));
-}
-
-// out[0..7] = cluster size, rows per band, threads per CTA, dynamic shared
-// memory per CTA (bytes), registers per thread, CTAs per SM, clusters that
-// run at once, static shared memory (bytes) of the scan of (c, l)
-extern "C" int mv_light_scan_info(int c, int l, int has_sm, int* out) {
-  ScanPlan p;
-  cudaError_t err = has_sm ? scan_plan<true>(c, l, 0, &p)
-                           : scan_plan<false>(c, l, 0, &p);
-  if (err != cudaSuccess) return (int)err;
-  cudaFuncAttributes fa;
-  int per_sm = 0;
-  if (has_sm) {
-    err = cudaFuncGetAttributes(&fa, self_scan_kernel<true, true>);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, self_scan_kernel<true, true>, p.threads, p.smem);
-  } else {
-    err = cudaFuncGetAttributes(&fa, self_scan_kernel<false, true>);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, self_scan_kernel<false, true>, p.threads, p.smem);
-  }
-  if (err != cudaSuccess) return (int)err;
-  out[0] = p.cluster; out[1] = p.band; out[2] = p.threads;
-  out[3] = (int)p.smem; out[4] = fa.numRegs; out[5] = per_sm;
-  out[6] = p.active_clusters; out[7] = (int)fa.sharedSizeBytes;
-  return 0;
+  return (int)launch_scan<kScanSm, true>(rho, du, dv, f_corr, e0, dz_slice,
+                                         soft, nullptr, here, s_out, c, l, 0,
+                                         (cudaStream_t)stream);
 }
 
 extern "C" int mv_light_advect_mul(const void* here, const void* t_in,
                                    const void* du, const void* dv,
                                    void* out, int c, int l, void* stream) {
-  static int max_smem = 0;
-  if (max_smem == 0) {
-    cudaError_t err = allow_max_smem(advect_mul_kernel, &max_smem);
-    if (err != cudaSuccess) { max_smem = 0; return (int)err; }
+  return (int)launch_scan<kAdvect, true>(here, du, dv, nullptr, nullptr,
+                                         nullptr, nullptr, t_in, out,
+                                         nullptr, c, l, 0,
+                                         (cudaStream_t)stream);
+}
+
+// The launch of (c, l) of `mode` (0 the self scan, 1 with the shadow map,
+// 2 the advect-multiply) with an empty body: L cluster barriers and
+// nothing else, the floor of the dependent chain (for the measurement).
+// `cluster` > 0 takes that cluster size in place of the planned one.
+extern "C" int mv_light_scan_floor(int c, int l, int mode, int cluster,
+                                   void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (mode) {
+    case kScan: return (int)launch_floor<kScan>(c, l, cluster, st);
+    case kScanSm: return (int)launch_floor<kScanSm>(c, l, cluster, st);
+    case kAdvect: return (int)launch_floor<kAdvect>(c, l, cluster, st);
   }
-  advect_mul_kernel<<<c, kThreads, smem_bytes(l), (cudaStream_t)stream>>>(
-      (const float*)here, (const float*)t_in, (const float*)du,
-      (const float*)dv, (float*)out, l);
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
+}
+
+// out[0..7] = cluster size, rows per band, threads per CTA, dynamic shared
+// memory per CTA (bytes), registers per thread, CTAs per SM, clusters that
+// run at once, static shared memory (bytes) of the launch of (c, l) of
+// `mode` (as mv_light_scan_floor)
+extern "C" int mv_light_scan_info(int c, int l, int mode, int* out) {
+  switch (mode) {
+    case kScan: return (int)scan_info<kScan>(c, l, out);
+    case kScanSm: return (int)scan_info<kScanSm>(c, l, out);
+    case kAdvect: return (int)scan_info<kAdvect>(c, l, out);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -76,6 +76,24 @@ def mesh_tiles(scene, th: int, tw: int):
     return m.reshape(hp // th, th, wp // tw, tw).any(dim=3).any(dim=1)
 
 
+def mesh_tile_votes(scene, th: int, tw: int, tiles_x: int):
+    """`mesh_tiles` as the kernel's vote reads the plane
+    (`csrc/composite.cu: mesh_tile_kernel`): list tile t (row-major over
+    `tiles_x` tiles a row) starts at pixel ((t // tiles_x) th,
+    (t % tiles_x) tw) and its i-th 16-byte load covers row i // (tw / 4),
+    columns 4 (i % (tw / 4)) .. + 3 -> (T,) bool."""
+    hp, wp = scene.shape
+    q = tw // 4
+    n_tiles = (hp // th) * tiles_x
+    t = torch.arange(n_tiles, device=scene.device)[:, None, None]
+    i = torch.arange(th * q, device=scene.device)[None, :, None]
+    row = (t // tiles_x) * th + i // q
+    col = (t % tiles_x) * tw + 4 * (i % q) \
+        + torch.arange(4, device=scene.device)[None, None, :]
+    z = scene[row, col]
+    return ((z > 0.0) & (z < 1.0)).flatten(1).any(dim=1)
+
+
 def tile_composite_plain(color, scene, tlist, counts, vol_flt, face_flt,
                          th: int, tw: int, tiles_x: int, k_layers: int,
                          width: int, height: int, depth_sel=None,
@@ -228,18 +246,44 @@ def tile_composite(color, scene, tlist, counts, vol_flt, face_flt, th: int,
     vol_flt, face_flt = vol_flt.float().contiguous(), \
         face_flt.float().contiguous()
     scene = scene.float().contiguous()
+    if depth_sel is not None and scene.data_ptr() % 16:
+        scene = scene.clone()       # the vote reads it 16 bytes at a time
     for name, t in (("tlist", tlist), ("counts", counts),
                     ("vol_flt", vol_flt), ("face_flt", face_flt),
                     ("scene", scene)):
         ops.check_cuda(t, name)
     out = torch.empty((4, hp, wp), dtype=torch.float32, device=color.device)
+    # the depth variant's per-tile mesh vote (written by the entry point's
+    # first launch, read by the composite)
+    flags = None if depth_sel is None else torch.empty(
+        tlist.shape[0], dtype=torch.int32, device=color.device)
     build.launch(
         "mv_tile_composite", color.data_ptr(),
         0 if depth_sel is None else depth_sel.data_ptr(), tlist.data_ptr(),
         counts.data_ptr(), vol_flt.data_ptr(), face_flt.data_ptr(),
-        scene.data_ptr(), out.data_ptr(), n, s, hp, wp, th, tw, tiles_x,
-        k_layers, width, height, tile_row0,
-        int(color.dtype == torch.bfloat16), device=color.device)
+        scene.data_ptr(), 0 if flags is None else flags.data_ptr(),
+        out.data_ptr(), n, s, hp, wp, th, tw, tiles_x, k_layers, width,
+        height, tile_row0, int(color.dtype == torch.bfloat16),
+        device=color.device)
     ops.count_launch(("composite" if depth_sel is None else "composite_depth")
                      + ("_band" if band else ""))
     return out
+
+
+def composite_launch_info(bf16: bool, with_depth: bool) -> dict:
+    """Registers per thread, CTAs per SM, threads per CTA, static shared
+    memory and spill bytes of the composite kernel of that storage type
+    and variant on the current card (`csrc/composite.cu:
+    mv_tile_composite_info`)."""
+    import ctypes
+
+    from multivolumes_tpu_torch.ops import build
+
+    out = (ctypes.c_int * 5)()
+    err = build.library().mv_tile_composite_info(int(bf16), int(with_depth),
+                                                 out)
+    if err != 0:
+        raise RuntimeError(f"mv_tile_composite_info: CUDA error {err}")
+    keys = ("registers", "ctas_per_sm", "threads", "static_smem_bytes",
+            "spill_bytes")
+    return dict(zip(keys, out))

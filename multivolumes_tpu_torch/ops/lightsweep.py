@@ -142,17 +142,41 @@ def bshift_lerp_bands(x, taps_v, taps_u, n_bands: int):
     return torch.cat(parts, dim=1)
 
 
-def scan_launch_info(c: int, l: int, has_sm: bool = False) -> dict:
-    """How the self scan of a cohort of `c` volumes of side `l` launches
-    on the current card: cluster size, rows per band, threads, shared
-    memory per CTA, registers per thread, CTAs per SM and the clusters
-    that run at once (`csrc/lightsweep.cu: mv_light_scan_info`)."""
+def advect_mul_bands(here, t_in, du, dv, n_bands: int):
+    """B4 evaluated as the kernel's cluster does: the carry t_0 = t_in
+    held as `n_bands` row bands, t <- `bshift_lerp_bands(t)` (the 2-tap
+    order) and out_k = t * here_k. Equal to `light_advect_mul_plain` to
+    rounding (the plain version keeps the dense matrix products)."""
+    l = here.shape[1]
+    taps_v, taps_u = shift_taps(l, dv), shift_taps(l, du)
+    out = torch.empty_like(here)
+    t = t_in
+    for k in range(l):
+        t = bshift_lerp_bands(t, taps_v, taps_u, n_bands)
+        out[:, k] = t * here[:, k]
+    return out
+
+
+def _scan_mode(has_sm: bool, advect: bool) -> int:
+    """The launch's mode in csrc/lightsweep.cu: 0 the self scan, 1 with
+    the shadow map, 2 the advect-multiply."""
+    return 2 if advect else int(has_sm)
+
+
+def scan_launch_info(c: int, l: int, has_sm: bool = False,
+                     advect: bool = False) -> dict:
+    """How the self scan (`advect`: the advect-multiply, B4) of a cohort
+    of `c` volumes of side `l` launches on the current card: cluster
+    size, rows per band, threads, shared memory per CTA, registers per
+    thread, CTAs per SM and the clusters that run at once
+    (`csrc/lightsweep.cu: mv_light_scan_info`)."""
     import ctypes
 
     from multivolumes_tpu_torch.ops import build
 
     out = (ctypes.c_int * 8)()
-    err = build.library().mv_light_scan_info(c, l, int(has_sm), out)
+    err = build.library().mv_light_scan_info(c, l, _scan_mode(has_sm, advect),
+                                             out)
     if err != 0:
         raise RuntimeError(f"mv_light_scan_info: CUDA error {err}")
     keys = ("cluster", "band_rows", "threads", "smem_bytes", "registers",
@@ -161,15 +185,16 @@ def scan_launch_info(c: int, l: int, has_sm: bool = False) -> dict:
 
 
 def scan_chain_floor(c: int, l: int, has_sm: bool, device,
-                     cluster: int = 0) -> None:
-    """Launch the self scan of (c, l) with an empty body: its L cluster
-    barriers and nothing else. Timed beside the kernel, it is the floor
-    of the scan's dependent chain. `cluster` > 0 takes that cluster size
-    in place of the planned one. Not a kernel of any path (no count)."""
+                     cluster: int = 0, advect: bool = False) -> None:
+    """Launch the self scan (`advect`: the advect-multiply) of (c, l) with
+    an empty body: its L cluster barriers and nothing else. Timed beside
+    the kernel, it is the floor of the dependent chain. `cluster` > 0
+    takes that cluster size in place of the planned one. Not a kernel of
+    any path (no count)."""
     from multivolumes_tpu_torch.ops import build
 
-    build.launch("mv_light_scan_floor", c, l, int(has_sm), cluster,
-                 device=device)
+    build.launch("mv_light_scan_floor", c, l, _scan_mode(has_sm, advect),
+                 cluster, device=device)
 
 
 def light_self_scan_plain(rho_o, du, dv, f_corr, sm_vol=None, z_entry=None,
@@ -205,7 +230,10 @@ def light_self_scan_plain(rho_o, du, dv, f_corr, sm_vol=None, z_entry=None,
 
 
 def light_advect_mul_plain(here, t_in, du, dv):
-    """Plain version of B4: out_k = here_k * B^{k+1}(t_in).
+    """Plain version of B4: out_k = here_k * B^{k+1}(t_in). The kernel is
+    the banded scan of B3 with the carry started from t_in's bands, here
+    streamed in place of the density and the product formed off the
+    chain (`advect_mul_bands` is its order of operations).
 
     here (C, L, L, L); t_in (C, L, L); du, dv (C,) -> (C, L, L, L)."""
     l = here.shape[1]

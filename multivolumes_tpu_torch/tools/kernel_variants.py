@@ -1,26 +1,34 @@
-"""Time edited copies of the B1 and B3 kernels against the sources as they
-are, on the card: the measurements behind the design decisions recorded
-in `PERF.md` (which path a launch takes, how often the early-exit vote
-runs, when the light is staged, what the attenuation and the ring depth
-cost).
+"""Time edited copies of the B1, B2 / B2', B3 and B4 kernels against the
+sources as they are, on the card: the measurements behind the design
+decisions recorded in `PERF.md` (which path a launch takes, how often the
+early-exit vote runs, when the light is staged, what the attenuation and
+the ring depth cost, where the advect's product is formed, the
+composite's register bound and divisions).
 
     python -m multivolumes_tpu_torch.tools.kernel_variants
     python -m multivolumes_tpu_torch.tools.kernel_variants \\
         --old-lightsweep old_lightsweep.cu     # e.g. from `git show`
+    python -m multivolumes_tpu_torch.tools.kernel_variants \\
+        --only composite advect --old-composite old_composite.cu \\
+        --mesh mesh.obj
 
 Each variant is the committed source with a few exact text replacements
-(`SWEEP_VARIANTS`, `SCAN_VARIANTS`), compiled by its own `nvcc` into its
-own library under `build/torch_ext/variants/` and called through the
-ordinary wrapper, so a variant times exactly what the frame would run. A
+(`SWEEP_VARIANTS`, `SCAN_VARIANTS`, `ADVECT_VARIANTS`,
+`COMPOSITE_VARIANTS`), compiled by its own `nvcc` into its own library
+under `build/torch_ext/variants/` and called through the ordinary
+wrapper, so a variant times exactly what the frame would run. A
 replacement whose text is no longer in the source raises (the CPU test
 `tests/test_torch_kernel_variants.py` holds the lists against the
-sources). Times are device times of the kernel alone, from the
-profiler's kernel events, on the operands of one demo-scale frame (B1:
-its three LOD buckets; `--f32` adds the full-resolution bucket on f32
-stacks) and on seeded cohorts of 1, 8 and 64 volumes of 96^3 (B3, B3').
-With `--old-lightsweep`, an earlier `lightsweep.cu` with the same C entry
-points is timed beside the current one and its outputs are compared bit
-for bit.
+sources). Times are device times of the kernels a call launches, from
+the profiler's kernel events, on the operands of one demo-scale frame
+(B1: its three LOD buckets, `--f32` adds the full-resolution bucket on
+f32 stacks; B2: the frame's composite, and with `--mesh` the depth
+variant on a frame with that mesh) and on seeded cohorts of 1, 8 and 64
+volumes of 96^3 (B3, B3', B4). With `--old-lightsweep` /
+`--old-composite`, an earlier source with the same C entry points (an
+earlier `composite.cu` takes no scratch for the mesh vote: its entry
+point is called without it) is timed beside the current one and its
+outputs are compared bit for bit.
 """
 
 from __future__ import annotations
@@ -75,9 +83,50 @@ SCAN_VARIANTS = {
     "ring of 8 slices": [("constexpr int kRing = 4;",
                           "constexpr int kRing = 8;")],
     # here_k stored from the threads, no bulk copies
-    "direct stores": [("(int)(l % 4 == 0));", "0);")],
+    "direct stores": [("(int)(kMode != kAdvect && l % 4 == 0));", "0);")],
     "2 rows in flight": [("constexpr int kUnroll = 4;",
                           "constexpr int kUnroll = 2;")],
+}
+# name -> [(text in csrc/lightsweep.cu, its replacement), ...], timed on B4
+ADVECT_VARIANTS = {
+    "as it is": [],
+    # the product formed and stored inside the chain, before the arrive
+    "product on the chain": [
+        ("            nxt[i] = sh;\n          } else {",
+         "            nxt[i] = sh;\n            out_k[i] = sh * a_k[i];\n"
+         "          } else {"),
+        ("        out_k[i] = nxt[i] * a_k[i];\n", "")],
+    "ring of 8 slices": SCAN_VARIANTS["ring of 8 slices"],
+}
+_BOUND = "constexpr int kMinCtas = 3;"
+_SLAB = ("  float ds = safe(d);\n"
+         "  float t1 = (-1.0f - o) / ds, t2 = (1.0f - o) / ds;")
+# name -> [(text in csrc/composite.cu, its replacement), ...]
+COMPOSITE_VARIANTS = {
+    "as it is": [],
+    # the register bound: CTAs an SM must hold (1: no bound)
+    "no register bound": [(_BOUND, "constexpr int kMinCtas = 1;")],
+    "2 CTAs an SM": [(_BOUND, "constexpr int kMinCtas = 2;")],
+    "4 CTAs an SM": [(_BOUND, "constexpr int kMinCtas = 4;")],
+    # one reciprocal per axis in place of two divisions (rounds otherwise:
+    # the tool counts the pixels that move)
+    "reciprocal slab": [(_SLAB, "  float r = 1.0f / safe(d);\n"
+                                "  float t1 = (-1.0f - o) * r, t2 = (1.0f - o)"
+                                " * r;")],
+    # the per-pair loop reads the records from device memory (the L1)
+    "records from device memory": [
+        ("      const float* vf = rec + e * kRecF;",
+         "      const float* vf = vol_flt + (size_t)list[i0 + e] * kVolF;"),
+        ("      const float* fq = vf + kVolF + face * 9;",
+         "      const float* fq = face_flt + ((size_t)vid * 6 + face) * 9;")],
+    "chunks of 16 volumes": [("constexpr int kChunk = 32;",
+                              "constexpr int kChunk = 16;")],
+    # the face colours not read (a wrong result: what the texel gathers
+    # cost, the most a shared-memory cache of the faces could save)
+    "no colour gathers": [("  const size_t pl = (size_t)t.s * t.s;\n",
+                           "  if (t.s > 0)\n    return make_float4(t.w0, "
+                           "t.w1, 0.5f * t.w0, 0.25f);\n"
+                           "  const size_t pl = (size_t)t.s * t.s;\n")],
 }
 DEMO = dict(width=1280, height=800, grid_size=128, light_grid_size=96,
             max_ray_samples=256, max_light_samples=96, num_volumes=64,
@@ -92,6 +141,11 @@ def apply_edits(source: str, edits) -> str:
             raise ValueError(f"{source.count(old)} occurrences of {old!r}")
         source = source.replace(old, new)
     return source
+
+
+# an earlier composite.cu's entry point: no scratch for the mesh vote
+_OLD_COMPOSITE = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12 \
+    + [ctypes.c_void_p]
 
 
 def build_variants(stem: str, variants, entry_points, extra=()):
@@ -122,6 +176,13 @@ def build_variants(stem: str, variants, entry_points, extra=()):
         for fn in entry_points:
             getattr(cdll, fn).argtypes = build.SIGNATURES[fn]
             getattr(cdll, fn).restype = ctypes.c_int
+        if stem == "composite" and "void* flags" not in texts[name]:
+            # an earlier source: called with the current arguments, less
+            # the vote's scratch (the 8th)
+            old = cdll.mv_tile_composite
+            old.argtypes = _OLD_COMPOSITE
+            cdll.mv_tile_composite = lambda *a, _old=old: _old(*a[:7],
+                                                              *a[8:])
         libs[name] = cdll
     return libs
 
@@ -139,9 +200,10 @@ class _Library:
                        else self._base, name)
 
 
-def device_ms(fn, kernel: str, reps: int) -> float:
-    """Mean device time of the kernels named `kernel` over `reps` fn()
-    (a profile now and then records no kernel: tried again)."""
+def device_ms(fn, kernel, reps: int) -> float:
+    """Device time per fn() of the kernels whose name contains `kernel`
+    (a name or a tuple of names, each launched once a call), over `reps`
+    calls (a profile now and then records no kernel: tried again)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -153,10 +215,16 @@ def device_ms(fn, kernel: str, reps: int) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and kernel in e.name]
-        if times:
-            return sum(times) / len(times)
+        names = (kernel,) if isinstance(kernel, str) else kernel
+        per = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA \
+                    and any(k in e.name for k in names):
+                per.setdefault(e.name, []).append(
+                    e.time_range.elapsed_us() / 1e3)
+        if per:
+            # each name's mean: a profile may drop an event now and then
+            return sum(sum(t) / len(t) for t in per.values())
     raise RuntimeError(f"the profiler recorded no {kernel} kernel")
 
 
@@ -178,39 +246,52 @@ def time_variants(what, fn, libs, entry_points, kernel, reps, rounds=2):
                     ref = got
                 diff = max(float((g - r).abs().max())
                            for g, r in zip(got, ref))
+                moved = sum(int(((g - r).abs() > 1e-4).sum())
+                            for g, r in zip(got, ref))
                 same = all(torch.equal(g, r) for g, r in zip(got, ref))
                 ms = device_ms(fn, kernel, reps)
             finally:
                 build.library = cached
-            cells.append(f"{name} {ms:.4f}"
-                         + ("" if same else f" (differs by {diff:.1e})"))
+            cells.append(f"{name} {ms:.4f}" + (
+                "" if same else f" (differs by {diff:.1e}, {moved} "
+                                f"elements by more than 1e-4)"))
         print(f"{what}, round {rnd + 1}, device ms: " + "; ".join(cells),
               flush=True)
 
 
-def sweep_calls(device):
-    """The B1 calls of one demo-scale frame: [(args, kwargs), ...]."""
+def frame_calls(device, mesh=None):
+    """The B1 and B2 calls of one demo-scale frame (with `mesh`, an OBJ
+    file, set on the engine): {"sweep": [(args, kwargs), ...],
+    "composite": [...]}."""
     from multivolumes_tpu_torch.config import RenderConfig
     from multivolumes_tpu_torch.core import camera as cam_lib
     from multivolumes_tpu_torch.engine import MultiRayCaster
     from multivolumes_tpu_torch.render import frame as frame_lib
     from multivolumes_tpu_torch.render import sweep as sweep_mod
+    from multivolumes_tpu_torch.render import tilecast as tile_mod
 
     cfg = RenderConfig(**DEMO)
     engine = MultiRayCaster(cfg, device=device)
-    calls, orig = [], sweep_mod.sweep_march
-
-    def spy(*a, **k):
-        calls.append((a, {n: v for n, v in k.items() if n != "impl"}))
-        return orig(*a, **k)
-
-    sweep_mod.sweep_march = spy
+    if mesh is not None:
+        engine.set_mesh(mesh)
+        engine.select_raster_preset((0.0, 6.0, 60.0))
+    calls = {"sweep": [], "composite": []}
+    spied = [(sweep_mod, "sweep_march", "sweep"),
+             (tile_mod, "tile_composite", "composite")]
+    origs = [getattr(mod, fn) for mod, fn, _key in spied]
+    for (mod, fn, key), orig in zip(spied, origs):
+        def spy(*a, _orig=orig, _key=key, **k):
+            calls[_key].append((a, {n: v for n, v in k.items()
+                                    if n != "impl"}))
+            return _orig(*a, **k)
+        setattr(mod, fn, spy)
     try:
         frame_lib.render_frame(
             engine.state, cam_lib.orbit_camera(0.0, cfg.aspect_ratio,
                                                device=device), engine.config)
     finally:
-        sweep_mod.sweep_march = orig
+        for (mod, fn, _key), orig in zip(spied, origs):
+            setattr(mod, fn, orig)
     torch.cuda.synchronize()
     return calls
 
@@ -231,8 +312,14 @@ def scan_case(device, c: int, l: int, seed: int = 0):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", nargs="+", default=list(SECTIONS),
+                    choices=list(SECTIONS), help="the kernels to time")
     ap.add_argument("--old-lightsweep", help="an earlier lightsweep.cu to "
-                    "time and compare bit for bit")
+                    "time and compare bit for bit (B3, B4)")
+    ap.add_argument("--old-composite", help="an earlier composite.cu to "
+                    "time and compare bit for bit (B2)")
+    ap.add_argument("--mesh", help="an OBJ mesh: also time the composite's "
+                    "depth variant on a frame with it")
     ap.add_argument("--f32", action="store_true",
                     help="also the full-resolution bucket on f32 stacks")
     ap.add_argument("--reps", type=int, default=20)
@@ -246,10 +333,15 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
     build.library()
+    for name in args.only:
+        SECTIONS[name](args, device)
+    return 0
 
+
+def time_sweep(args, device):
     entry = ("mv_sweep_march",)
     libs = build_variants("sweep", SWEEP_VARIANTS, entry)
-    for a, k in sweep_calls(device):
+    for a, k in frame_calls(device)["sweep"]:
         dtypes = [a[0].dtype] + ([torch.float32] if args.f32
                                  and a[8] == DEMO["cube_map_size"] else [])
         for dtype in dtypes:
@@ -259,10 +351,15 @@ def main(argv=None) -> int:
                 lambda: sweep_ops.sweep_march(*a2, **k, impl="kernel"),
                 libs, entry, "sweep_kernel", args.reps)
 
+
+def _extra(path):
+    return [("old source", path)] if path else []
+
+
+def time_scan(args, device):
     entry = ("mv_light_self_scan", "mv_light_self_scan_sm")
-    extra = ([("old source", args.old_lightsweep)]
-             if args.old_lightsweep else [])
-    libs = build_variants("lightsweep", SCAN_VARIANTS, entry, extra)
+    libs = build_variants("lightsweep", SCAN_VARIANTS, entry,
+                          _extra(args.old_lightsweep))
     for c in (1, 8, 64):
         for has_sm in (False, True):
             ops_in, sm = scan_case(device, c, 96)
@@ -277,7 +374,50 @@ def main(argv=None) -> int:
                 "self_scan_kernel", args.reps)
             print(f"  its chain floor (empty body, 96 barriers): "
                   f"{floor:.4f} ms", flush=True)
-    return 0
+
+
+def time_advect(args, device):
+    entry = ("mv_light_advect_mul",)
+    libs = build_variants("lightsweep", ADVECT_VARIANTS, entry,
+                          _extra(args.old_lightsweep))
+    for c in (1, 8, 64):
+        (rho, du, dv, f), _sm = scan_case(device, c, 96)
+        here, _ = light_ops.light_self_scan(rho, du, dv, f, impl="kernel")
+        t_in = 0.2 + 0.8 * torch.rand((c, 96, 96), generator=torch.Generator(
+            device=device).manual_seed(c), device=device)
+        time_variants(
+            f"B4 C={c} L=96",
+            lambda: light_ops.light_advect_mul(here, t_in, du, dv,
+                                               impl="kernel"),
+            libs, entry, ("self_scan_kernel", "advect_mul_kernel"),
+            args.reps)
+        floor = device_ms(
+            lambda: light_ops.scan_chain_floor(c, 96, False, device,
+                                               advect=True),
+            "self_scan_kernel", args.reps)
+        print(f"  its chain floor (empty body, 96 barriers): {floor:.4f} ms",
+              flush=True)
+
+
+def time_composite(args, device):
+    from multivolumes_tpu_torch.ops import composite as composite_ops
+
+    entry = ("mv_tile_composite",)
+    libs = build_variants("composite", COMPOSITE_VARIANTS, entry,
+                          _extra(args.old_composite))
+    cases = [("B2", frame_calls(device)["composite"][0])]
+    if args.mesh:
+        cases.append(("B2'", frame_calls(device, args.mesh)["composite"][0]))
+    for what, (a, k) in cases:
+        time_variants(
+            f"{what} 1280x800",
+            lambda: composite_ops.tile_composite(*a, **k, impl="kernel"),
+            libs, entry, ("tile_composite_kernel", "mesh_tile_kernel"),
+            args.reps)
+
+
+SECTIONS = {"sweep": time_sweep, "scan": time_scan, "advect": time_advect,
+            "composite": time_composite}
 
 
 if __name__ == "__main__":

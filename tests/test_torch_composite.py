@@ -93,3 +93,28 @@ def test_composite_rejects_mismatched_swap_flags(prep_case):
     with pytest.raises(ValueError, match="swap flags"):
         ptile._tile_prep(*port_args, num_layers=8, order=port_kw["order"],
                          swap_sorted=bad)
+
+
+@pytest.mark.parametrize("where", ["none", "top-left", "bottom-right",
+                                   "right-column", "bottom-row", "all"])
+def test_mesh_tile_votes_match_mesh_tiles(where):
+    """The composite kernel's once-per-tile mesh vote, read as its 16-byte
+    loads walk a tile, flags the tiles `mesh_tiles` flags; mesh pixels on
+    the first or last row or column of a tile, background 1 and pad 0."""
+    th, tw, tiles_x, tile_rows = 16, 32, 3, 2
+    scene = torch.ones((tile_rows * th, tiles_x * tw))
+    scene[:, -5:] = 0.0                      # the pad
+    if where == "top-left":
+        scene[th, tw] = 0.5                  # tile (1, 1), first pixel
+    elif where == "bottom-right":
+        scene[th - 1, 2 * tw - 1] = 0.25     # tile (0, 1), last pixel
+    elif where == "right-column":
+        scene[5, tw - 1] = 0.9               # tile (0, 0), last column
+    elif where == "bottom-row":
+        scene[2 * th - 1, 2 * tw + 3] = 1e-3  # tile (1, 2), last row
+    elif where == "all":
+        scene[:] = 0.75
+    votes = pcomp_ops.mesh_tile_votes(scene, th, tw, tiles_x)
+    want = pcomp_ops.mesh_tiles(scene, th, tw).flatten()
+    assert torch.equal(votes, want)
+    assert int(want.sum()) == {"none": 0, "all": 6}.get(where, 1)

@@ -18,6 +18,7 @@ from multivolumes_tpu_torch import ops
 from multivolumes_tpu_torch.config import RenderConfig
 from multivolumes_tpu_torch.core import camera as cam_lib
 from multivolumes_tpu_torch.engine import MultiRayCaster
+from multivolumes_tpu_torch.ops import composite as composite_ops
 from multivolumes_tpu_torch.ops import lightsweep as light_ops
 from multivolumes_tpu_torch.ops import raster_bin
 from multivolumes_tpu_torch.ops import sweep as sweep_ops
@@ -185,6 +186,31 @@ def test_b3_b4_kernels_match_plain_on_card():
 
 
 @pytest.mark.cuda
+def test_b4_kernel_matches_plain_on_card():
+    """B4 is the banded scan with the carry started from t_in: cohorts of 1
+    (the frame's refresh), 8 and 64 (the full refresh) at L = 96 (clusters
+    of 8 and 2 CTAs, bulk stores) and L = 20 (one CTA, direct stores),
+    with a t_in that varies over the plane, so that a kernel which started
+    its carry from 1, or from another band's rows, would fail."""
+    dev = cuda_device()
+    assert light_ops.scan_launch_info(1, 96, advect=True)["cluster"] == 8
+    assert light_ops.scan_launch_info(64, 96, advect=True)["cluster"] == 2
+    for c, l in [(c, l) for l in (96, 20) for c in (1, 8, 64)]:
+        rho, du, dv, f, t_in = _scan_case(dev, c=c, l=l, seed=c + l)
+        t_in = 0.2 + 0.8 * t_in
+        here, _ = light_ops.light_self_scan(rho, du, dv, f, impl="plain")
+        ops.reset_launches()
+        got = light_ops.light_advect_mul(here, t_in, du, dv, impl="kernel")
+        assert ops.LAUNCHES["light_advect_mul"] == 1
+        want = light_ops.light_advect_mul(here, t_in, du, dv, impl="plain")
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+        flat = light_ops.light_advect_mul(
+            here, torch.full_like(t_in, float(t_in.mean())), du, dv,
+            impl="plain")
+        assert float((flat - want).abs().max()) > 1e-3
+
+
+@pytest.mark.cuda
 def test_b3_cluster_plan_on_card():
     """The scan's launch shape follows the cohort: a cluster of 8 CTAs for
     one 96^3 volume, of 2 for 64 of them, one CTA for a 20^3 volume; a
@@ -241,9 +267,10 @@ def test_b3_shadow_map_kernel_matches_plain_on_card():
 
 @pytest.mark.cuda
 def test_b2_depth_kernel_matches_plain_on_card(tmp_path):
-    """B2's depth variant on the operands of a frame with the mesh."""
+    """B2's depth variant on the operands of a frame with the mesh, on a
+    screen whose tiles mix mesh and non-mesh pixels; its band launch."""
     dev = cuda_device()
-    cfg = SMALL.with_(shadow_map_size=64)
+    cfg = SMALL.with_(shadow_map_size=64, width=320, height=200)
     eng = MultiRayCaster(cfg, device=dev)
     eng.set_mesh(write_test_mesh(tmp_path / "torus.obj", 2000))
     cam = cam_lib.make_camera([10.0, -4.0, -35.0], [0.0, -2.0, 5.0],
@@ -263,11 +290,27 @@ def test_b2_depth_kernel_matches_plain_on_card(tmp_path):
     a, k = captured["args"]
     k = {key: v for key, v in k.items() if key != "impl"}
     assert k["depth_sel"] is not None
+    # the screen's tiles mix: some hold a mesh pixel, some do not
+    on = composite_ops.mesh_tiles(a[1], a[6], a[7])
+    assert bool(on.any()) and not bool(on.all()), on
     ops.reset_launches()
     got = orig(*a, **k, impl="kernel")
     assert ops.LAUNCHES["composite_depth"] == 1
     want = orig(*a, **k, impl="plain")
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    # the depth weights move some pixels (a kernel that skipped them fails)
+    plain_warp = orig(*a, **dict(k, depth_sel=None), impl="kernel")
+    assert float((got - plain_warp).abs().max()) > 1e-3
+    # a band of tile rows equals the unbanded launch bit for bit
+    (color, scene, tlist, counts, vol_flt, face_flt, th, tw, tiles_x, kl,
+     width, height) = a
+    r0 = scene.shape[0] // th // 2
+    band = orig(color, scene[r0 * th:], tlist[r0 * tiles_x:],
+                counts[r0 * tiles_x:], vol_flt, face_flt, th, tw, tiles_x,
+                kl, width, height, depth_sel=k["depth_sel"], tile_row0=r0,
+                impl="kernel")
+    assert ops.LAUNCHES["composite_depth_band"] == 1
+    torch.testing.assert_close(band, got[:, r0 * th:], atol=0, rtol=0)
 
 
 @pytest.mark.cuda

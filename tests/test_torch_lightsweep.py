@@ -185,3 +185,27 @@ def test_attenuation_ahead_is_the_per_slice_attenuation():
         s = here[:, k] * ahead[:, k]
     here_p, sout_p = pops.light_self_scan_plain(t(rho), t(du), t(dv), t(f))
     assert torch.equal(here, here_p) and torch.equal(s, sout_p)
+
+
+# --- what the cluster-banded advect-multiply (B4) relies on -----------------
+
+@pytest.mark.parametrize("n_bands", [1, 2, 8])
+@pytest.mark.parametrize("l", [16, 20])
+def test_advect_mul_by_row_bands_matches_plain(l, n_bands):
+    """B4 as the kernel's cluster evaluates it: the carry started from the
+    bands of a t_in that varies over the plane, sheared band by band in
+    the 2-tap order, times here_k, equals `light_advect_mul_plain` (the
+    dense matrix products) at the kernel's tolerance; shifts negative,
+    fractional and beyond one texel, one per cohort volume."""
+    shifts = np.array([-2.6, -1.0, -0.37, 0.0, 0.5, 1.7], np.float32)
+    rng = np.random.RandomState(l + n_bands)
+    c = shifts.shape[0]
+    here = t(rng.rand(c, l, l, l))
+    t_in = t(0.2 + 0.8 * rng.rand(c, l, l))
+    du, dv = t(0.6 * shifts[::-1].copy()), t(shifts)
+    want = pops.light_advect_mul_plain(here, t_in, du, dv)
+    got = pops.advect_mul_bands(here, t_in, du, dv, n_bands)
+    np.testing.assert_allclose(n(got), n(want), atol=ATOL)
+    # the carry's start matters: from 1 instead of t_in it is another field
+    ones = pops.advect_mul_bands(here, torch.ones_like(t_in), du, dv, n_bands)
+    assert float((ones - want).abs().max()) > 1e-2
