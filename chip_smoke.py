@@ -10,11 +10,17 @@ Phases (any failure exits non-zero, and no result line is printed):
   3. each kernel against its plain PyTorch version on the card, on the
      operands the main path gives it (captured from the demo-scale scene
      and its frames; the TAA resolve from the third frame, so the history
-     is not zero, with and without the fused tone map, and on a seeded
-     synthetic 1280x800 case with half the alpha at 1; the mesh variants
-     of B2 and B3 from a demo-scale frame with the mesh, where the depth
-     weights must move some seam pixels, and B3's also on the full light
-     refresh of `set_light` with a light from below the mesh's side, on
+     is not zero, with and without the fused tone map, and on seeded
+     synthetic cases with half the alpha at 1, independent per pixel:
+     1280x800, the same with NaN colours in cur and in hist (NaN must
+     spread exactly to the taps of the first, the NaN guard must fire on
+     the second), 1283x803 and 7x5 (no tile divides them) and the
+     row-band form on the 402- and 401-row bands of 1283x803, first and
+     last, which together must equal the whole image, all bit for bit;
+     the mesh variants of B2 and B3 from a demo-scale frame with the
+     mesh, where the depth weights must move some seam pixels, and B3's
+     also on the full light refresh of `set_light` with a light from
+     below the mesh's side, on
      the volumes that hold a penumbra of its shadow and at the refresh's
      full cohort, and on a refresh whose light sweep runs along y: the
      demo's light is above the volumes and the mesh lies low, so there it
@@ -23,8 +29,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      buckets; B3 and B4 also at the full refresh's 64 volumes), with
      the parity tolerance of the kernel's card test; times of both from
      CUDA events after warm-up, each kernel's bound (below), for B1, B2,
-     B2', the B2 band and B4 the device time of the kernels a call
-     launches (`device_ms`, profiler), and on lines of their own
+     B2', the B2 band, B4, B5, B5' and B6 the device time of the kernels
+     a call launches (`device_ms`, profiler), and on lines of their own
      ("[occupancy]", "[floor]") the registers, shared memory, cluster
      size and CTAs per SM of the B1, B2, B3 and B4 launches, the
      composite's list lengths, and the floor of B3's and B4's dependent
@@ -72,9 +78,11 @@ Each kernel's bound (`bound_ms`) is the larger of two times: the bytes
 it must move (each input read once, each output written once) over the
 card's 3.35 TB/s, and a count of its f32 operations on this run's
 inputs over 67 TFLOP/s (the H100 SXM's f32 rate outside the tensor
-cores); the counts are lower bounds where the work depends on the data
-(see `bound`). No single PyTorch call computes any of these functions,
-so `library_ms` is null (B6's yardstick, the `scatter_reduce_` raster it
+cores); where the work depends on the data, the counts are of what this
+run's inputs need (B1: the samples its march composites before a ray's
+transmittance falls below 0.01, and the texels they read; see
+`bound_*`). No single PyTorch call computes any of these functions, so
+`library_ms` is null (B6's yardstick, the `scatter_reduce_` raster it
 would replace, is another function: the microbench prints its time).
 
 The last line is `{"ok": true, "device": {...}}`; the line before it is
@@ -131,9 +139,11 @@ SHARDED = ("sweep", "composite_band", "light_self_scan", "light_advect_mul",
 
 
 def row_kernel(name):
-    """Summary row name -> (launch-count key, path): the part before "@",
-    or before "-C<n>" for the shadow-map rows."""
-    return ROW_KERNEL.get(name.split("-C")[0], (name.split("@")[0], "plain"))
+    """Summary row name -> (launch-count key, path): the part before "-C<n>"
+    for the shadow-map rows, or before "@"."""
+    base = name.split("@")[0]
+    return ROW_KERNEL.get(name.split("-C")[0],
+                          ROW_KERNEL.get(base, (base, "plain")))
 
 # the kernels one composite call launches (the depth variant's vote first)
 COMPOSITE_KERNELS = ("tile_composite_kernel", "mesh_tile_kernel")
@@ -209,12 +219,12 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernel, reps: int = 5):
+def device_ms(fn, kernel, reps: int = 9):
     """Device time (ms) per run of fn() of the kernels whose name contains
     `kernel` (a name or a tuple of names: a call may launch several, each
-    once), over `reps` runs, from the profiler's kernel events (a profile
-    now and then records none: tried three times); None when the profiler
-    records no device time."""
+    once), the median over `reps` runs, from the profiler's kernel events
+    (a profile now and then records none: tried three times); None when
+    the profiler records no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -235,15 +245,17 @@ def device_ms(fn, kernel, reps: int = 5):
                 per.setdefault(e.name, []).append(
                     e.time_range.elapsed_us() / 1e3)
         if per:
-            # each name's mean: a profile may drop an event now and then
-            return sum(sum(t) / len(t) for t in per.values())
+            # each name's median: a profile may drop or clip an event now
+            # and then
+            return sum(sorted(t)[len(t) // 2] for t in per.values())
     return None
 
 
 def compare_kernel(name, fn, args, kwargs, tol, bound_of, reps=(10, 2),
                    device_kernel=None):
     """Run wrapper `fn` with impl kernel and plain on the same operands;
-    check the tolerance (`tol=None`: integer outputs that must be equal);
+    check the tolerance (`tol=None`: outputs that must be equal, NaN where
+    the plain version has NaN);
     return the summary entry (launches filled in later).
     `bound_of(args, kwargs)` -> (bytes, f32 operations). With
     `device_kernel`, the entry also carries `device_ms`, the device time
@@ -259,8 +271,11 @@ def compare_kernel(name, fn, args, kwargs, tol, bound_of, reps=(10, 2),
     errs, means = [], []
     for g, w in zip(got, want):
         if tol is None:
-            check(torch.equal(g, w),
-                  f"{name}: {int((g != w).sum())} of {g.numel()} words "
+            differ = g != w
+            if g.is_floating_point():
+                differ &= ~(g.isnan() & w.isnan())
+            check(not bool(differ.any()),
+                  f"{name}: {int(differ.sum())} of {g.numel()} elements "
                   f"differ from the plain version")
             errs.append(0.0)
             means.append(0.0)
@@ -299,25 +314,27 @@ def _nbytes(*tensors) -> int:
 
 
 def bound_sweep(args, kwargs):
-    """B1: the referenced source volumes and light stacks, the per-ray
-    parameters, the output; operations: the front-to-back update (14 f32
-    operations) of each sample between a live ray's s_in and s_end (a
-    lower bound: the trilinear taps and the skipped slabs are not
-    counted)."""
-    import torch
+    """B1, counted by the plain version's own march on these inputs
+    (`sweep_march_plain(sample_counts=True)`): bytes, the distinct texels
+    of the source volumes (4 channels) and light stacks (3) that the
+    needed samples' taps read, the per-ray parameters and the output;
+    operations, the front-to-back update (14 f32 operations) of each
+    needed sample: a live sample (density above 0.01 inside the ray's
+    window) met while the ray's transmittance is still at least 0.01 (the
+    kernel skips transparent slabs and stops a face once all its rays are
+    below 0.01; the trilinear taps are not counted)."""
+    from multivolumes_tpu_torch.ops import sweep as sweep_ops
 
-    vols, light, tex, eye_f, params, smp, run, planes, size = args
-    ids = kwargs["light_ids"]
-    n_src = int(torch.unique(tex).numel())
-    live = params.active & run[:, :, None, None]
-    gz = 1.0 - eye_f[..., 2]                                  # (C, 6)
-    span = torch.clamp(params.s_end - params.s_in, min=0.0) \
-        * gz.abs()[:, :, None, None] * planes / 2.0
-    samples = float((span * live).sum())
-    out = 4 * live.shape[0] * 6 * 4 * size * size
-    return (n_src * vols[0].numel() * vols.element_size()
-            + int(ids.numel()) * light[0].numel() * light.element_size()
-            + _nbytes(*params) + out, 14.0 * samples)
+    vols, light, tex = args[:3]
+    params, size = args[4], args[8]
+    _acc, counts = sweep_ops.sweep_march_plain(
+        *args, n_eff_b=kwargs.get("n_eff_b"), light_ids=kwargs["light_ids"],
+        sample_counts=True)
+    out = 4 * tex.shape[0] * 6 * 4 * size * size
+    nbytes = (counts["vol_texels"] * 4 * vols.element_size()
+              + counts["light_texels"] * 3 * light.element_size()
+              + _nbytes(*params) + out)
+    return nbytes, 14.0 * float(counts["needed"].sum())
 
 
 def bound_composite(args, kwargs):
@@ -684,17 +701,29 @@ def phase_kernels(cfg, dev):
                                       device_kernel="self_scan_kernel"))
         scan_numbers(light_ops, f"light_advect_mul@{cname}", c, l, False,
                      dev, advect=True)
-    taa_tol = allclose_tol(2e-5, 0.0, "taa")
+    # B5 bit for bit: the frame's operands, and seeded ones that are
+    # independent per pixel (so a wrong halo or edge clamp shows), at the
+    # frame's size, with NaN colours, and at sizes no tile divides
     (a, _k) = taa_calls["taa_resolve"]
     check(float(a[1][3].min()) > 0.0, "frame 3's TAA history is still zero")
     for name, kw in (("taa@frame3", {}), ("taa@frame3+tonemap",
                                            dict(tonemap=True))):
         results.append(compare_kernel(name, taa_ops.taa_resolve, a, kw,
-                                      taa_tol, bound_taa, reps=(20, 3)))
-    results.append(compare_kernel(
-        "taa@synthetic", taa_ops.taa_resolve,
-        taa_synthetic(dev, cfg.height, cfg.width), dict(tonemap=True),
-        taa_tol, bound_taa, reps=(20, 3)))
+                                      None, bound_taa, reps=(20, 3),
+                                      device_kernel="taa_resolve_kernel"))
+    for name, (h, w), nan in (("taa@synthetic", (cfg.height, cfg.width),
+                               False),
+                              ("taa@synthetic+nan", (cfg.height, cfg.width),
+                               True),
+                              ("taa@1283x803", (803, 1283), False),
+                              ("taa@7x5", (5, 7), False)):
+        ops_in = taa_synthetic(dev, h, w, with_nan=nan)
+        results.append(compare_kernel(
+            name, taa_ops.taa_resolve, ops_in, dict(tonemap=True), None,
+            bound_taa, reps=(20, 3), device_kernel="taa_resolve_kernel"))
+        if nan:
+            taa_nan_check(taa_ops.taa_resolve(*ops_in, impl="kernel"))
+    results += taa_band_edges(taa_ops, dev)
     del frame_calls, init_calls, taa_calls
     return engine, results
 
@@ -883,21 +912,73 @@ def penumbra(args, kwargs):
     return ((without > 1e-4) & (lit > 0.01) & (lit < 0.99)).flatten(1).sum(1)
 
 
-def taa_synthetic(dev, h, w, seed=0):
-    """Seeded B5 operands that reach the history blend: half the alpha at
-    1, a random history with some full counts, a non-zero blur on half
-    the pixels."""
-    import numpy as np
+# (channel, row, column) of the NaN colours of `taa_synthetic(with_nan=True)`
+# in cur (each spreads to its 3 x 3 neighbourhood, one through the corner's
+# edge clamp) and in hist (the NaN guard takes the filtered colour there);
+# negative rows and columns count from the end
+CUR_NAN = ((0, 100, 100), (2, -1, -1), (1, 400, 0))
+HIST_NAN = ((1, 200, 300), (0, 0, 0), (2, -1, 640))
+
+
+def taa_synthetic(dev, h, w, seed=0, with_nan=False):
+    """Seeded B5 operands that reach the history blend, independent per
+    pixel (`tools.kernel_variants.taa_synthetic`: half the alpha at 1, a
+    random history with some full counts, a non-zero blur on half the
+    pixels); with `with_nan`, NaN colours at CUR_NAN and HIST_NAN."""
+    from multivolumes_tpu_torch.tools import kernel_variants
+
+    cur, hist, blur = kernel_variants.taa_synthetic(dev, h, w, seed)
+    if with_nan:
+        for c, y, x in CUR_NAN:
+            cur[c, y, x] = float("nan")
+        for c, y, x in HIST_NAN:
+            hist[c, y, x] = float("nan")
+    return cur, hist, blur
+
+
+def taa_nan_check(out):
+    """B5's new history on `taa_synthetic(with_nan=True)`: NaN on the 3 x 3
+    neighbourhood of each NaN colour of cur and nowhere else, finite at
+    the NaN histories (the NaN guard fired)."""
     import torch
 
-    rng = np.random.RandomState(seed)
-    cur = rng.rand(4, h, w).astype(np.float32) * 2.0
-    cur[3] = np.where(rng.rand(h, w) < 0.5, 1.0, 0.5)
-    hist = rng.rand(4, h, w).astype(np.float32)
-    hist[3] = np.where(rng.rand(h, w) < 0.3, 1.0, hist[3])
-    blur = np.where(rng.rand(h, w) < 0.5, 0.0, rng.rand(h, w) * 1.5)
-    return tuple(torch.tensor(x, dtype=torch.float32, device=dev)
-                 for x in (cur, hist, blur))
+    _, h, w = out.shape
+    want = torch.zeros((h, w), dtype=torch.bool, device=out.device)
+    for _c, y, x in CUR_NAN:
+        y, x = y % h, x % w
+        want[max(y - 1, 0):y + 2, max(x - 1, 0):x + 2] = True
+    got = out[:3].isnan().any(0)
+    log(f"  taa@synthetic+nan: {int(got.sum())} pixels NaN (expected "
+        f"{int(want.sum())}); at the NaN histories "
+        f"{[out[:3, y % h, x % w].tolist() for _c, y, x in HIST_NAN]}")
+    check(torch.equal(got, want), "B5: NaN outside the NaN colours' taps")
+    check(all(bool(torch.isfinite(out[:3, y % h, x % w]).all())
+              for _c, y, x in HIST_NAN), "B5: the NaN guard did not fire")
+
+
+def taa_band_edges(taa_ops, dev):
+    """B5' bit for bit on the two bands of a 1283 x 803 image (402 and 401
+    rows: no tile height divides either), as the first and as the last
+    band, and the two together against B5 on the whole image."""
+    import torch
+
+    from multivolumes_tpu_torch.tools.kernel_variants import band_operands
+
+    ops_in = taa_synthetic(dev, 803, 1283, seed=1)
+    whole = taa_ops.taa_resolve(*ops_in, impl="kernel")
+    rows, parts = [], []
+    for what, (y0, y1) in zip(("first", "last"), taa_ops.row_bands(803, 2)):
+        band = band_operands(*ops_in, y0, y1)
+        rows.append(compare_kernel(
+            f"taa_band@{what}-{y1 - y0}", taa_ops.taa_resolve_band, band, {},
+            None, bound_taa_band, reps=(20, 3),
+            device_kernel="taa_resolve_kernel"))
+        parts.append(taa_ops.taa_resolve_band(*band, impl="kernel"))
+    check(torch.equal(torch.cat(parts, 1), whole),
+          "the 402- and 401-row bands differ from B5 on the whole image")
+    log("  taa_band: the 402- and 401-row bands equal B5 on the whole "
+        "1283x803 image")
+    return rows
 
 
 def drive(what, fn, frames, kernels):
@@ -1240,9 +1321,9 @@ def phase_sharded(cfg, dev, frames: int = 3):
         (a, _k) = calls["taa_resolve_band*"][-1]
         check(float(a[1][3].min()) > 0.0, "the band's history is still zero")
         results.append(compare_kernel(
-            "taa_band", taa_ops.taa_resolve_band, a, {},
-            allclose_tol(2e-5, 0.0, "taa_band"), bound_taa_band,
-            reps=(20, 3)))
+            "taa_band", taa_ops.taa_resolve_band, a, {}, None,
+            bound_taa_band, reps=(20, 3),
+            device_kernel="taa_resolve_kernel"))
         # the band composite on the last frame's lower band of tile rows
         (a, k) = calls["tile_composite*"][-1]
         k = {name: x for name, x in k.items() if name != "impl"}
@@ -1289,7 +1370,7 @@ def phase_raster_bin(dev):
     operands = tool.eval_inputs(n_c, n_t, dev)
     row = compare_kernel("raster_bin_eval", raster_bin.raster_bin_eval,
                          (*operands, n_t), {}, None, bound_raster_bin,
-                         reps=(20, 2))
+                         reps=(20, 2), device_kernel="raster_bin_eval_kernel")
     out = raster_bin.raster_bin_eval(*operands, n_t)
     covered = int((out != raster_bin.EMPTY).sum())
     log(f"[raster_bin] {covered} of {out.numel()} pixels covered, "

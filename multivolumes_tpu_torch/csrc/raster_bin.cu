@@ -16,23 +16,47 @@
 // is the signed minimum over the candidates and over every chunk that
 // maps to the same tile.
 //
-// Design. One CTA per chunk, 256 threads, four pixels each (the same
-// column in rows ty, ty + 2, ty + 4, ty + 6, so neighbouring threads hold
-// neighbouring columns). The chunk's 10 x 128 coefficients are staged in
-// shared memory once; every thread then walks the 128 candidates with
-// broadcast reads (all threads read the same address: no bank conflict)
-// and keeps its four minima in registers. One atomicMin per pixel folds
-// the chunk into the output, which the wrapper pre-fills with
-// 0x7FFFFFFF. The TPU kernel's `first` flag and its revisited output
-// block exist because its grid runs in order on one core; here the CTAs
-// run in any order and the minimum is associative, so the atomics give
-// the same result.
+// What bounds it on the card: operations, some 25 per (pixel, candidate)
+// pair (three affines of two multiplies and two adds, the inside test,
+// the quantise-and-pack, the minimum) over 600 x 1024 x 128 pairs in the
+// microbench, against 40 bytes of coefficients per candidate read once
+// and 4 bytes written per pixel. Most are adds, compares and selects,
+// which run at one a lane a clock (the f32 peak counts an FMA as two).
+// A thread that holds 4 pixels of one column and reads each candidate's
+// 10 coefficients as scalars runs about 28 instructions a pair.
 //
-// What bounds it on the card: operations. Each (pixel, candidate) pair
-// costs about 25 float and integer operations (three affines of two
-// multiplies and two adds, the inside test, the quantise-and-pack, the
-// minimum), against 40 bytes of coefficients per candidate read once per
-// chunk and 4 bytes written per pixel.
+// Design. A CTA per chunk (and per kCtaRows rows of its tile): kSplit
+// groups of threads, each folding its share of the candidates, each
+// thread holding kPx columns (neighbouring threads neighbouring columns)
+// x kPy rows of pixels and their minima in registers; the groups' minima
+// meet in shared memory. The CTA stages the chunk's coefficients in
+// shared memory as [candidate][12] (the triangle id converted to an int
+// once), so a thread reads a candidate with three broadcast loads. Per
+// candidate a thread forms the kPx products xg * cx and the kPy products
+// yg * cy of each affine once and shares them over its pixels; per pair
+// it is then two adds per affine. Three identities take the rest out of
+// the per-pair work, each exact for every input:
+//   * c0 = (1 - c1) - c2 >= 0 is tested as (1 - c1) >= c2. Where c1 >= 0
+//     and c2 >= 0 hold (both tests are part of the cover test), a
+//     difference of two floats rounds to a negative value exactly when
+//     it is negative (gradual underflow: a non-zero difference is at
+//     least the least subnormal), and the infinite cases fail both forms.
+//   * Where the pair covers the pixel, 0 <= z <= 1, so z * 32767 lies in
+//     [0, 32767] and both clamps are identities. __fadd_rz(v, 2^23) holds
+//     2^23 + trunc(v) exactly (the ulp there is 1), and shifting its bits
+//     left by 17 drops the exponent: the result is trunc(v) << 17, with
+//     the same wrap into the sign bit. One full-rate add in place of two
+//     min / max and a conversion on the slow pipe. A pair that does not
+//     cover the pixel offers 0x7FFFFFFF either way.
+//   * Where every triangle id of the chunk lies in [0, 2^17) (decided
+//     once per CTA), the shifted depth and the id share no bit, so
+//     (zq << 17) | tid is one multiply-add.
+// tests/test_torch_raster_bin.py holds the first two identities in numpy.
+// One atomicMin per pixel folds the chunk into the output, which the
+// wrapper pre-fills with 0x7FFFFFFF. The TPU kernel's `first` flag and
+// its revisited output block exist because its grid runs in order on one
+// core; here the CTAs run in any order and the minimum is associative, so
+// the atomics give the same result.
 //
 // Numerics. The inside test is a sign test at triangle edges, so each
 // affine is written with the round-to-nearest intrinsics, which nvcc
@@ -48,14 +72,66 @@ namespace {
 constexpr int kCand = 128;
 constexpr int kTileH = 8;
 constexpr int kTileW = 128;
-constexpr int kThreads = 256;
-constexpr int kRows = 10;                       // coefficient rows read
-constexpr int kPix = kTileH * kTileW / kThreads;  // pixels per thread
+constexpr int kRows = 10;                 // coefficient rows read
+constexpr int kSlot = 12;                 // floats a staged candidate takes
+constexpr int kPx = 4;                    // columns a thread holds
+constexpr int kPy = 4;                    // rows a thread holds
+constexpr int kCtaRows = 4;               // tile rows a CTA covers
+constexpr int kSplit = 2;                 // thread groups a candidate list
+                                          // is split over
+constexpr int kColThreads = kTileW / kPx;
+constexpr int kGroupThreads = kColThreads * (kCtaRows / kPy);
+constexpr int kThreads = kGroupThreads * kSplit;
+constexpr int kGroupCand = kCand / kSplit;  // candidates a group folds
 constexpr int kEmpty = 0x7FFFFFFF;
+static_assert(kTileH % kCtaRows == 0 && kCtaRows % kPy == 0, "row split");
 
-__device__ __forceinline__ float affine(float xg, float yg, float cx,
-                                        float cy, float ck) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(xg, cx), __fmul_rn(yg, cy)), ck);
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+
+// Fold the chunk's candidates into the thread's kPy x kPx minima. With
+// kNarrow (every triangle id of the chunk in [0, 2^17)) the depth bits and
+// the id do not overlap, so (zq << 17) | tid is one multiply-add.
+template <bool kNarrow>
+__device__ __forceinline__ void eval_candidates(const float4* __restrict__ s4,
+                                                const float* xg,
+                                                const float* yg,
+                                                int (*best)[kPx]) {
+#pragma unroll 4
+  for (int c = 0; c < kGroupCand; ++c) {
+    // a0 a1 a2 b0 | b1 b2 z0 z1 | z2 tid - -
+    const float4 p = s4[c * 3], q = s4[c * 3 + 1], s = s4[c * 3 + 2];
+    const unsigned tid = (unsigned)__float_as_int(s.y);
+    float xa[kPx], xb[kPx], xz[kPx], ya[kPy], yb[kPy], yz[kPy];
+#pragma unroll
+    for (int j = 0; j < kPx; ++j) {
+      xa[j] = mul(xg[j], p.x);
+      xb[j] = mul(xg[j], p.w);
+      xz[j] = mul(xg[j], q.z);
+    }
+#pragma unroll
+    for (int j = 0; j < kPy; ++j) {
+      ya[j] = mul(yg[j], p.y);
+      yb[j] = mul(yg[j], q.x);
+      yz[j] = mul(yg[j], q.w);
+    }
+#pragma unroll
+    for (int a = 0; a < kPy; ++a) {
+#pragma unroll
+      for (int b = 0; b < kPx; ++b) {
+        const float c1 = add(add(xa[b], ya[a]), p.z);
+        const float c2 = add(add(xb[b], yb[a]), q.y);
+        const float z = add(add(xz[b], yz[a]), s.x);
+        const bool ok = c1 >= 0.0f && c2 >= 0.0f &&
+                        __fsub_rn(1.0f, c1) >= c2 && z >= 0.0f && z <= 1.0f;
+        const unsigned zq =
+            __float_as_uint(__fadd_rz(mul(z, 32767.0f), 8388608.0f));
+        const int word =
+            (int)(kNarrow ? zq * 131072u + tid : (zq << 17) | tid);
+        best[a][b] = ok ? min(best[a][b], word) : best[a][b];
+      }
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -64,51 +140,70 @@ raster_bin_eval_kernel(const int* __restrict__ tile_of_chunk,
                        const float* __restrict__ y0,
                        const float* __restrict__ coef, int* __restrict__ out,
                        int n_tiles, int coef_stride) {
-  __shared__ float sc[kRows][kCand];
+  __shared__ __align__(16) float sc[kCand * kSlot];
   const int i = blockIdx.x;
-  for (int k = threadIdx.x; k < kRows * kCand; k += kThreads)
-    sc[k / kCand][k % kCand] =
-        coef[(size_t)(k / kCand) * coef_stride + (size_t)i * kCand
-             + k % kCand];
-  __syncthreads();
   const int tile = tile_of_chunk[i];
   if (tile < 0 || tile >= n_tiles) return;  // never write outside `out`
-
-  const int x = threadIdx.x % kTileW;
-  const int ty = threadIdx.x / kTileW;  // 0 or 1
-  const float xg = __fadd_rn(__fadd_rn((float)x, x0[i]), 0.5f);
-  float yg[kPix];
-  int best[kPix];
-#pragma unroll
-  for (int j = 0; j < kPix; ++j) {
-    yg[j] = __fadd_rn(__fadd_rn((float)(ty + 2 * j), y0[i]), 0.5f);
-    best[j] = kEmpty;
-  }
-
-  for (int c = 0; c < kCand; ++c) {
-    const float a0 = sc[0][c], a1 = sc[1][c], a2 = sc[2][c];
-    const float b0 = sc[3][c], b1 = sc[4][c], b2 = sc[5][c];
-    const float z0 = sc[6][c], z1 = sc[7][c], z2 = sc[8][c];
-    const int tid = (int)sc[9][c];
-#pragma unroll
-    for (int j = 0; j < kPix; ++j) {
-      const float c1 = affine(xg, yg[j], a0, a1, a2);
-      const float c2 = affine(xg, yg[j], b0, b1, b2);
-      const float z = affine(xg, yg[j], z0, z1, z2);
-      const float c0 = __fsub_rn(__fsub_rn(1.0f, c1), c2);
-      const bool ok = c1 >= 0.0f && c2 >= 0.0f && c0 >= 0.0f &&
-                      z >= 0.0f && z <= 1.0f;
-      const int zq =
-          (int)fminf(fmaxf(__fmul_rn(z, 32767.0f), 0.0f), 32767.0f);
-      const int word = (int)(((unsigned)zq << 17) | (unsigned)tid);
-      best[j] = min(best[j], ok ? word : kEmpty);
+  const float* ci = coef + (size_t)i * kCand;
+  bool narrow = true;
+  for (int k = threadIdx.x; k < kRows * kCand; k += kThreads) {
+    const int r = k / kCand, c = k - r * kCand;
+    float v = ci[(size_t)r * coef_stride + c];
+    if (r == kRows - 1) {
+      const int tid = (int)v;
+      narrow = narrow && (unsigned)tid < (1u << 17);
+      v = __int_as_float(tid);
     }
+    sc[c * kSlot + r] = v;
+  }
+  narrow = __syncthreads_and(narrow);
+
+  // the thread's group (its share of the candidates) and pixels
+  const int g = threadIdx.x / kGroupThreads, gt = threadIdx.x % kGroupThreads;
+  const int cx = gt % kColThreads;
+  const int ry = blockIdx.y * kCtaRows + gt / kColThreads * kPy;
+  float xg[kPx], yg[kPy];
+#pragma unroll
+  for (int j = 0; j < kPx; ++j)
+    xg[j] = add(add((float)(cx + j * kColThreads), x0[i]), 0.5f);
+#pragma unroll
+  for (int j = 0; j < kPy; ++j)
+    yg[j] = add(add((float)(ry + j), y0[i]), 0.5f);
+  int best[kPy][kPx];
+#pragma unroll
+  for (int a = 0; a < kPy; ++a)
+#pragma unroll
+    for (int b = 0; b < kPx; ++b) best[a][b] = kEmpty;
+
+  const float4* s4 = reinterpret_cast<const float4*>(sc) + g * kGroupCand * 3;
+  if (narrow)
+    eval_candidates<true>(s4, xg, yg, best);
+  else
+    eval_candidates<false>(s4, xg, yg, best);
+  if (kSplit > 1) {
+    // the other groups' minima, folded by the first group
+    __shared__ int red[kSplit][kPy][kPx][kGroupThreads];
+#pragma unroll
+    for (int a = 0; a < kPy; ++a)
+#pragma unroll
+      for (int b = 0; b < kPx; ++b) red[g][a][b][gt] = best[a][b];
+    __syncthreads();
+    if (g > 0) return;
+    for (int o = 1; o < kSplit; ++o)
+#pragma unroll
+      for (int a = 0; a < kPy; ++a)
+#pragma unroll
+        for (int b = 0; b < kPx; ++b)
+          best[a][b] = min(best[a][b], red[o][a][b][gt]);
   }
 #pragma unroll
-  for (int j = 0; j < kPix; ++j)
-    if (best[j] != kEmpty)
-      atomicMin(&out[((size_t)tile * kTileH + ty + 2 * j) * kTileW + x],
-                best[j]);
+  for (int a = 0; a < kPy; ++a)
+#pragma unroll
+    for (int b = 0; b < kPx; ++b)
+      if (best[a][b] != kEmpty)
+        atomicMin(&out[(tile * kTileH + ry + a) * kTileW + cx +
+                       b * kColThreads],
+                  best[a][b]);
 }
 
 }  // namespace
@@ -121,9 +216,11 @@ extern "C" int mv_raster_bin_eval(const void* tile_of_chunk, const void* x0,
                                   int n_chunks, int n_tiles, int coef_stride,
                                   void* stream) {
   if (n_chunks <= 0) return (int)cudaSuccess;
-  if (n_tiles <= 0 || coef_stride < n_chunks * kCand)
+  if (n_tiles <= 0 || coef_stride < n_chunks * kCand
+      || (long long)n_tiles * kTileH * kTileW >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
-  raster_bin_eval_kernel<<<n_chunks, kThreads, 0, (cudaStream_t)stream>>>(
+  dim3 grid(n_chunks, kTileH / kCtaRows);
+  raster_bin_eval_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const int*)tile_of_chunk, (const float*)x0, (const float*)y0,
       (const float*)coef, (int*)out, n_tiles, coef_stride);
   return (int)cudaGetLastError();

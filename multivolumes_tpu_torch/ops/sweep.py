@@ -23,6 +23,7 @@ from multivolumes_tpu_torch import ops
 ABSORPTION = SharedConsts.ABSORPTION
 ZERO_THRESHOLD = SharedConsts.ZERO_THRESHOLD
 MAX_DIST = SharedConsts.MAX_DIST
+EXIT_T = 0.01  # csrc/sweep.cu: a face stops once all its rays are below it
 FLT_MAX = 3.402823466e38
 
 # Face -> stored variant (0: [z,y,x]; 1: z<->x; 2: z<->y) and the face's
@@ -56,10 +57,20 @@ def _face_tables(n: int, device):
 
 def sweep_march_plain(volumes, light, vol_tex_ids, eye_faces, params,
                       smp_count, run_mask, num_planes: int, size: int,
-                      n_eff_b=None, light_ids=None):
+                      n_eff_b=None, light_ids=None,
+                      sample_counts: bool = False):
     """The JAX twin `sweep_batched`, one plane per step. dtype = the
     stacks' dtype: fetches, interpolation weights and the pass-1 product
-    round to it; the products accumulate in f32."""
+    round to it; the products accumulate in f32.
+
+    With `sample_counts`, returns (scatter, counts) where counts holds
+    what a march of these inputs needs: "live", per ray ((N, 6, S, S)
+    int32), the samples it composites (density above ZERO_THRESHOLD
+    inside its window); "needed", those of them it meets while its
+    transmittance is still at least EXIT_T (the kernel stops a face once
+    all its rays are below EXIT_T); "vol_texels" and "light_texels", the
+    distinct texels of the source volumes and light stacks that the
+    needed samples' taps of non-zero weight read."""
     dtype = volumes.dtype
     dev = volumes.device
     vol_or = orient_variants(volumes)              # (N_src, 3, D, 4, H, W)
@@ -119,8 +130,57 @@ def sweep_march_plain(volumes, light, vol_tex_ids, eye_faces, params,
         return torch.einsum("bih,bchj->bcij", wy.float(),
                             tmp.to(dtype).float())
 
+    def mark(need_or, need, idx, wk, dd, nn, coords_v, coords_u):
+        """Set need_or (stacks, 3, dd, nn, nn) where a `need` ray's taps
+        of non-zero weight read this plane (as slab() and interp())."""
+        zc = (wk * 0.5 + 0.5) * dd - 0.5
+        zc = zc + zf_b * ((dd - 1.0) - 2.0 * zc)
+        z0 = torch.clamp(torch.floor(zc).long(), 0, dd - 1)
+        fz = torch.clamp(zc - torch.floor(zc), 0.0, 1.0).to(dtype)
+        zt = torch.stack([z0, torch.clamp(z0 + 1, 0, dd - 1)], -1)
+        zm = torch.stack([1 - fz > 0, fz > 0], -1)              # (B, 2)
+
+        def taps(coords, flip):
+            c = torch.clamp(coords, 0.0, nn - 1.0)
+            c = c + flip[:, None] * ((nn - 1.0) - 2.0 * c)
+            t = torch.floor(c)[..., None] + torch.tensor([0.0, 1.0],
+                                                         device=dev)
+            wt = torch.clamp(1.0 - (c[..., None] - t).abs(), min=0.0)
+            return t.long().clamp(0, nn - 1), wt.to(dtype) > 0
+
+        yt, ym = taps(coords_v, vf_b)                           # (B, S, 2)
+        xt, xm = taps(coords_u, uf_b)
+        base = (idx * 3 + var_b)[:, None] * dd + zt             # (B, 2)
+        flat = ((base[:, :, None, None, None, None] * nn
+                 + yt[:, None, :, :, None, None]) * nn
+                + xt[:, None, None, None, :, :])
+        hit = (need[:, None, :, None, :, None]
+               & zm[:, :, None, None, None, None]
+               & ym[:, None, :, :, None, None] & xm[:, None, None, None])
+        need_or.view(-1)[flat[hit]] = True
+
+    def distinct(need_or):
+        """Distinct texels in the stacks' own layout (the three oriented
+        variants are transposes of one stack)."""
+        n_st, _, dd, nn, _ = need_or.shape
+        ids = orient_variants_cf(torch.arange(
+            dd * nn * nn, device=dev).reshape(1, dd, nn, nn))[:, :, 0]
+        orig = torch.zeros((n_st, dd * nn * nn), dtype=torch.bool,
+                           device=dev)
+        for var in range(3):
+            perm = ids[var].reshape(-1)
+            orig[:, perm] |= need_or[:, var].reshape(n_st, -1)
+        return int(orig.sum())
+
     transm = torch.ones((b, size, size), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, 4, size, size), dtype=torch.float32, device=dev)
+    if sample_counts:
+        n_live = torch.zeros((b, size, size), dtype=torch.int32, device=dev)
+        n_needed = torch.zeros_like(n_live)
+        vol_need = torch.zeros((volumes.shape[0], 3, d, h, w),
+                               dtype=torch.bool, device=dev)
+        light_need = torch.zeros((light.shape[0], 3, dl, hl, wl),
+                                 dtype=torch.bool, device=dev)
     for k in range(num_planes):
         wk = ew_c + (k + 0.5) * delta
         sk = (wk - ew) * inv_gz
@@ -142,8 +202,22 @@ def sweep_march_plain(volumes, light, vol_tex_ids, eye_faces, params,
         amt = torch.where(live, transm * (1.0 - a_mult), 0.0)
         acc[:, :3] += plane[:, :3] * lgt * amt[:, None]
         acc[:, 3] += amt
+        if sample_counts:
+            need = live & (transm >= EXIT_T)
+            n_live += live
+            n_needed += need
+            mark(vol_need, need, tex_b, wk, d, h, (pv * 0.5 + 0.5) * h - 0.5,
+                 (pu * 0.5 + 0.5) * w - 0.5)
+            mark(light_need, need, lm_b, wk, dl, hl,
+                 (pv * 0.5 + 0.5) * hl - 0.5, (pu * 0.5 + 0.5) * wl - 0.5)
         transm = transm * a_mult
-    return acc.reshape(n, 6, 4, size, size)
+    acc = acc.reshape(n, 6, 4, size, size)
+    if sample_counts:
+        return acc, {"live": n_live.reshape(n, 6, size, size),
+                     "needed": n_needed.reshape(n, 6, size, size),
+                     "vol_texels": distinct(vol_need),
+                     "light_texels": distinct(light_need)}
+    return acc
 
 
 # --- what the kernel's staging relies on, mirrored for the CPU tests -------

@@ -1,9 +1,10 @@
-"""Time edited copies of the B1, B2 / B2', B3 and B4 kernels against the
-sources as they are, on the card: the measurements behind the design
-decisions recorded in `PERF.md` (which path a launch takes, how often the
-early-exit vote runs, when the light is staged, what the attenuation and
-the ring depth cost, where the advect's product is formed, the
-composite's register bound and divisions).
+"""Time edited copies of the hand kernels against the sources as they are,
+on the card: the measurements behind the design decisions recorded in
+`PERF.md` (which path a launch takes, how often the early-exit vote runs,
+when the light is staged, what the attenuation and the ring depth cost,
+where the advect's product is formed, the composite's register bound and
+divisions, the TAA resolve's tile and thread shape, the raster eval's
+pixels per thread and its exact shortcuts).
 
     python -m multivolumes_tpu_torch.tools.kernel_variants
     python -m multivolumes_tpu_torch.tools.kernel_variants \\
@@ -11,24 +12,33 @@ composite's register bound and divisions).
     python -m multivolumes_tpu_torch.tools.kernel_variants \\
         --only composite advect --old-composite old_composite.cu \\
         --mesh mesh.obj
+    python -m multivolumes_tpu_torch.tools.kernel_variants \\
+        --only taa raster --old-taa old_taa.cu --old-raster-bin old_rb.cu \\
+        --sass
 
 Each variant is the committed source with a few exact text replacements
 (`SWEEP_VARIANTS`, `SCAN_VARIANTS`, `ADVECT_VARIANTS`,
-`COMPOSITE_VARIANTS`), compiled by its own `nvcc` into its own library
-under `build/torch_ext/variants/` and called through the ordinary
-wrapper, so a variant times exactly what the frame would run. A
-replacement whose text is no longer in the source raises (the CPU test
-`tests/test_torch_kernel_variants.py` holds the lists against the
-sources). Times are device times of the kernels a call launches, from
-the profiler's kernel events, on the operands of one demo-scale frame
-(B1: its three LOD buckets, `--f32` adds the full-resolution bucket on
-f32 stacks; B2: the frame's composite, and with `--mesh` the depth
-variant on a frame with that mesh) and on seeded cohorts of 1, 8 and 64
-volumes of 96^3 (B3, B3', B4). With `--old-lightsweep` /
-`--old-composite`, an earlier source with the same C entry points (an
-earlier `composite.cu` takes no scratch for the mesh vote: its entry
-point is called without it) is timed beside the current one and its
-outputs are compared bit for bit.
+`COMPOSITE_VARIANTS`, `TAA_VARIANTS`, `RASTER_VARIANTS`), compiled by its
+own `nvcc` into its own library under `build/torch_ext/variants/` and
+called through the ordinary wrapper, so a variant times exactly what the
+frame would run. A replacement whose text is no longer in the source
+raises (the CPU test `tests/test_torch_kernel_variants.py` holds the lists
+against the sources). Times are device times of the kernels a call
+launches, from the profiler's kernel events, on the operands of one
+demo-scale frame (B1: its three LOD buckets, `--f32` adds the
+full-resolution bucket on f32 stacks; B2: the frame's composite, and with
+`--mesh` the depth variant on a frame with that mesh; B5: the third
+frame's resolve, with and without the display image), on seeded
+operands (B5 at 1280x800 with the display image, B5' on the lower
+400-row band of it, B6 at the raster microbench's 600 chunks) and on
+seeded cohorts of 1, 8 and 64 volumes of 96^3 (B3, B3', B4). With
+`--old-lightsweep` / `--old-composite` / `--old-taa` / `--old-raster-bin`,
+an earlier source with the same C entry points (an earlier `composite.cu`
+takes no scratch for the mesh vote: its entry point is called without it)
+is timed beside the current one and its outputs are compared bit for bit.
+With `--sass`, each B5 and B6 library's machine code (`cuobjdump -sass`)
+is counted: the instructions of each kernel, and for B6 those of its
+candidate loop per (pixel, candidate) pair.
 """
 
 from __future__ import annotations
@@ -128,6 +138,66 @@ COMPOSITE_VARIANTS = {
                            "t.w1, 0.5f * t.w0, 0.25f);\n"
                            "  const size_t pl = (size_t)t.s * t.s;\n")],
 }
+_NMIN = ('  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));')
+_NMAX = ('  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));')
+TAA_VARIANTS = {
+    "as it is": [],
+    # one tile a CTA, so nothing is loaded while a tile is resolved
+    "a CTA a tile": [("  return std::min(n_tiles, resident_ctas<kBand>());",
+                      "  return n_tiles;")],
+    "tiles of 32 x 16": [("constexpr int kTileH = 8;",
+                          "constexpr int kTileH = 16;")],
+    # the register bound: CTAs an SM must hold
+    "4 CTAs an SM": [("constexpr int kMinCtas = 1;",
+                      "constexpr int kMinCtas = 4;")],
+    "6 CTAs an SM": [("constexpr int kMinCtas = 1;",
+                      "constexpr int kMinCtas = 6;")],
+    "8 CTAs an SM": [("constexpr int kMinCtas = 1;",
+                      "constexpr int kMinCtas = 8;")],
+    # 1 / x, 4 / x, 0.25 / x as PyTorch forms them, x.reciprocal() * num
+    # (the same values)
+    "reciprocals": [("  return div(num, x);",
+                     "  return mul(__frcp_rn(x), num);")],
+    # min and max by NaN tests and a compare (the earlier source's form)
+    "NaN tests": [
+        (_NMIN, "  r = (a != a || b != b) ? __int_as_float(0x7fffffff) : "
+                "(a < b ? a : b);"),
+        (_NMAX, "  r = (a != a || b != b) ? __int_as_float(0x7fffffff) : "
+                "(a > b ? a : b);")],
+}
+_PACK = "(int)(kNarrow ? zq * 131072u + tid : (zq << 17) | tid);"
+_ZQ = ("        const unsigned zq =\n"
+       "            __float_as_uint(__fadd_rz(mul(z, 32767.0f), 8388608.0f));")
+# name -> [(text in csrc/raster_bin.cu, its replacement), ...], timed on B6
+RASTER_VARIANTS = {
+    "as it is": [],
+    # how the work is cut: pixels a thread, CTAs a chunk (the tail: 600
+    # chunks on 132 SMs), thread groups a candidate list is split over
+    "8 pixels a thread": [("constexpr int kPy = 4;",
+                           "constexpr int kPy = 2;")],
+    "8 pixels a thread, one CTA a chunk": [
+        ("constexpr int kPy = 4;", "constexpr int kPy = 2;"),
+        ("constexpr int kCtaRows = 4;", "constexpr int kCtaRows = 8;")],
+    "one CTA a chunk": [("constexpr int kCtaRows = 4;",
+                         "constexpr int kCtaRows = 8;")],
+    "8 x 2 pixels, four CTAs a chunk": [
+        ("constexpr int kPx = 4;", "constexpr int kPx = 8;"),
+        ("constexpr int kPy = 4;", "constexpr int kPy = 2;"),
+        ("constexpr int kCtaRows = 4;", "constexpr int kCtaRows = 2;")],
+    "one group": [("constexpr int kSplit = 2;", "constexpr int kSplit = 1;")],
+    "four groups": [("constexpr int kSplit = 2;",
+                     "constexpr int kSplit = 4;")],
+    "unroll 2": [("#pragma unroll 4\n", "#pragma unroll 2\n")],
+    "no unroll": [("#pragma unroll 4\n", "#pragma unroll 1\n")],
+    # what each exact shortcut saves: the shift-and-or pack for every
+    # chunk, the plain version's c0, and its clamp-and-convert quantisation
+    "shift-and-or pack": [(_PACK, "(int)((zq << 17) | tid);")],
+    "c0 formed": [("__fsub_rn(1.0f, c1) >= c2",
+                   "__fsub_rn(__fsub_rn(1.0f, c1), c2) >= 0.0f")],
+    "clamp and convert": [(_ZQ, (
+        "        const unsigned zq = (unsigned)(int)fminf(\n"
+        "            fmaxf(mul(z, 32767.0f), 0.0f), 32767.0f);"))],
+}
 DEMO = dict(width=1280, height=800, grid_size=128, light_grid_size=96,
             max_ray_samples=256, max_light_samples=96, num_volumes=64,
             num_volume_srcs=10, cube_map_size=128)
@@ -202,8 +272,9 @@ class _Library:
 
 def device_ms(fn, kernel, reps: int) -> float:
     """Device time per fn() of the kernels whose name contains `kernel`
-    (a name or a tuple of names, each launched once a call), over `reps`
-    calls (a profile now and then records no kernel: tried again)."""
+    (a name or a tuple of names, each launched once a call), the median
+    over `reps` calls (a profile now and then records no kernel: tried
+    again)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -223,8 +294,9 @@ def device_ms(fn, kernel, reps: int) -> float:
                 per.setdefault(e.name, []).append(
                     e.time_range.elapsed_us() / 1e3)
         if per:
-            # each name's mean: a profile may drop an event now and then
-            return sum(sum(t) / len(t) for t in per.values())
+            # each name's median: a profile may drop or clip an event now
+            # and then
+            return sum(sorted(t)[len(t) // 2] for t in per.values())
     raise RuntimeError(f"the profiler recorded no {kernel} kernel")
 
 
@@ -318,8 +390,15 @@ def main(argv=None) -> int:
                     "time and compare bit for bit (B3, B4)")
     ap.add_argument("--old-composite", help="an earlier composite.cu to "
                     "time and compare bit for bit (B2)")
+    ap.add_argument("--old-taa", help="an earlier taa.cu to time and "
+                    "compare bit for bit (B5, B5')")
+    ap.add_argument("--old-raster-bin", help="an earlier raster_bin.cu to "
+                    "time and compare bit for bit (B6)")
     ap.add_argument("--mesh", help="an OBJ mesh: also time the composite's "
                     "depth variant on a frame with it")
+    ap.add_argument("--sass", action="store_true",
+                    help="count the B5 and B6 libraries' instructions "
+                    "(cuobjdump -sass)")
     ap.add_argument("--f32", action="store_true",
                     help="also the full-resolution bucket on f32 stacks")
     ap.add_argument("--reps", type=int, default=20)
@@ -416,8 +495,154 @@ def time_composite(args, device):
             args.reps)
 
 
+def taa_frame_operands(device):
+    """B5's operands in the third demo-scale frame (the history is no
+    longer zero there): (cur, hist, blur)."""
+    from multivolumes_tpu_torch.config import RenderConfig
+    from multivolumes_tpu_torch.core import camera as cam_lib
+    from multivolumes_tpu_torch.engine import MultiRayCaster
+    from multivolumes_tpu_torch.ops import taa as taa_ops
+    from multivolumes_tpu_torch.render import frame as frame_lib
+
+    cfg = RenderConfig(**DEMO)
+    calls = []
+    orig = taa_ops.taa_resolve
+
+    def spy(*a, **k):
+        calls.append(a[:3])
+        return orig(*a, **k)
+
+    taa_ops.taa_resolve = spy
+    try:
+        engine = MultiRayCaster(cfg, device=device)
+        state, config = engine.state, engine.config
+        for i in range(3):
+            state = frame_lib.render_frame(
+                state, cam_lib.orbit_camera(0.25 * i, cfg.aspect_ratio,
+                                            device=device), config).state
+    finally:
+        taa_ops.taa_resolve = orig
+    torch.cuda.synchronize()
+    return tuple(x.clone() for x in calls[-1])
+
+
+def taa_synthetic(device, h=800, w=1280, seed=0):
+    """Seeded B5 operands, independent per pixel (so a wrong halo or edge
+    clamp changes the output): half the alpha at 1, a random history with
+    some full counts, a non-zero blur on half the pixels."""
+    rng = np.random.RandomState(seed)
+    cur = rng.rand(4, h, w).astype(np.float32) * 2.0
+    cur[3] = np.where(rng.rand(h, w) < 0.5, 1.0, 0.5)
+    hist = rng.rand(4, h, w).astype(np.float32)
+    hist[3] = np.where(rng.rand(h, w) < 0.3, 1.0, hist[3])
+    blur = np.where(rng.rand(h, w) < 0.5, 0.0, rng.rand(h, w) * 1.5)
+    return tuple(torch.tensor(x, dtype=torch.float32, device=device)
+                 for x in (cur, hist, blur))
+
+
+def band_operands(cur, hist, blur, y0, y1):
+    """B5' operands of rows y0..y1 of a whole image: the band with the row
+    above and the row below it (the replicated edge row at the image's
+    edge, as `collectives.halo_rows` builds them), its history and blur."""
+    h = cur.shape[1]
+    above, below = max(y0 - 1, 0), min(y1, h - 1)
+    cur_halo = torch.cat([cur[:, above:above + 1], cur[:, y0:y1],
+                          cur[:, below:below + 1]], 1)
+    return (cur_halo.contiguous(), hist[:, y0:y1].contiguous(),
+            blur[y0:y1].contiguous())
+
+
+def time_taa(args, device):
+    from multivolumes_tpu_torch.ops import taa as taa_ops
+
+    entry = ("mv_taa_resolve", "mv_taa_resolve_band")
+    libs = build_variants("taa", TAA_VARIANTS, entry, _extra(args.old_taa))
+    frame = taa_frame_operands(device)
+    synth = taa_synthetic(device)
+    band = band_operands(*synth, 400, 800)
+    cases = [("B5 frame 3", lambda: taa_ops.taa_resolve(*frame,
+                                                         impl="kernel")),
+             ("B5 frame 3 + display image",
+              lambda: taa_ops.taa_resolve(*frame, tonemap=True,
+                                          impl="kernel")),
+             ("B5 synthetic + display image",
+              lambda: taa_ops.taa_resolve(*synth, tonemap=True,
+                                          impl="kernel")),
+             ("B5' 400-row band", lambda: taa_ops.taa_resolve_band(
+                 *band, impl="kernel"))]
+    for what, fn in cases:
+        time_variants(what, fn, libs, entry, "taa_resolve_kernel", args.reps)
+    if args.sass:
+        sass_counts(libs, "taa_resolve_kernel")
+
+
+def time_raster(args, device):
+    from multivolumes_tpu_torch.ops import raster_bin
+    from multivolumes_tpu_torch.tools.raster_bin_microbench import \
+        eval_inputs
+
+    entry = ("mv_raster_bin_eval",)
+    libs = build_variants("raster_bin", RASTER_VARIANTS, entry,
+                          _extra(args.old_raster_bin))
+    operands = eval_inputs(600, 150, device)
+    time_variants("B6 600 chunks",
+                  lambda: raster_bin.raster_bin_eval(*operands, 150,
+                                                     impl="kernel"),
+                  libs, entry, "raster_bin_eval_kernel", args.reps)
+    if args.sass:
+        sass_counts(libs, "raster_bin_eval_kernel", per_pair=True)
+
+
+def sass_counts(libs, kernel, per_pair=False):
+    """Print, for each variant's library, the instructions of each
+    function whose name contains `kernel` (`cuobjdump -sass`) and of each
+    of its loops (a backward branch: the instructions from its target to
+    it); with `per_pair`, a loop's instructions per (pixel, candidate)
+    pair, each pair quantising its depth with one FADD.RZ (a variant
+    that converts instead shows its loop's length only)."""
+    import re
+    from pathlib import Path
+
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    for name, lib in libs.items():
+        text = subprocess.run([str(tool), "-sass", lib._name],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        for fn in re.split(r"\n\s*Function : ", text)[1:]:
+            fname = fn.split("\n", 1)[0].strip()
+            if kernel not in fname:
+                continue
+            insts, labels = [], {}
+            for line in fn.splitlines():
+                m = re.match(r"\s*(\.L_x_\d+):", line)
+                if m:
+                    labels[m.group(1)] = len(insts)
+                m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+                if m:
+                    insts.append(m.group(2))
+            loops = []
+            for i, ins in enumerate(insts):
+                m = re.search(r"BRA\s+(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))",
+                              ins)
+                if m is None:
+                    continue
+                tgt = (labels.get(m.group(1), i) if m.group(1)
+                       else int(m.group(2), 16) // 16)
+                if tgt < i:
+                    loops.append(insts[tgt:i + 1])
+            line = f"  [sass] {name}: {fname[:60]}: {len(insts)} instructions"
+            for body in loops:
+                line += f"; a loop of {len(body)}"
+                pairs = sum("FADD.RZ" in ins for ins in body)
+                if per_pair and pairs:
+                    line += (f" with {pairs} pairs: {len(body) / pairs:.2f} "
+                             f"instructions a pair")
+            print(line, flush=True)
+
+
 SECTIONS = {"sweep": time_sweep, "scan": time_scan, "advect": time_advect,
-            "composite": time_composite}
+            "composite": time_composite, "taa": time_taa,
+            "raster": time_raster}
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """The measurement variants of `tools/kernel_variants.py` still apply to
 the kernel sources: every replacement names text that occurs exactly once
-in `csrc/sweep.cu`, `csrc/lightsweep.cu` or `csrc/composite.cu`, and
-changes it."""
+in `csrc/sweep.cu`, `csrc/lightsweep.cu`, `csrc/composite.cu`,
+`csrc/taa.cu` or `csrc/raster_bin.cu`, and changes it."""
 
 import pytest
 
@@ -11,7 +11,9 @@ from multivolumes_tpu_torch.tools import kernel_variants as kv
 LISTS = {"sweep": ("sweep", kv.SWEEP_VARIANTS),
          "lightsweep": ("lightsweep", kv.SCAN_VARIANTS),
          "advect": ("lightsweep", kv.ADVECT_VARIANTS),
-         "composite": ("composite", kv.COMPOSITE_VARIANTS)}
+         "composite": ("composite", kv.COMPOSITE_VARIANTS),
+         "taa": ("taa", kv.TAA_VARIANTS),
+         "raster": ("raster_bin", kv.RASTER_VARIANTS)}
 CASES = [(key, name) for key, (_stem, variants) in LISTS.items()
          for name in variants]
 

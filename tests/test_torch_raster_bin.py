@@ -114,6 +114,61 @@ def test_plain_matches_the_pallas_kernel_interpreted():
     assert (got[visited] < 0).any()
 
 
+def test_kernel_quantise_identity():
+    """B6 packs the depth as `bits(__fadd_rz(z * 32767, 2^23)) << 17`
+    (csrc/raster_bin.cu) where the plain version takes
+    `trunc(clip(z * 32767, 0, 32767)) << 17`. For every f32 z in [0, 1]
+    (the only depths a covering pair offers) within two ulps of each
+    multiple of 1/32767, and a seeded sample of 10^6 more, the words agree
+    mod 2^32. The sum rounded toward zero is exact in f64 here (zs has
+    24 significant bits and lies below 2^15), so floor() gives the RZ
+    result."""
+    f32 = np.float32
+    grid = (np.arange(32768, dtype=np.float64) / 32767).astype(f32)
+    parts = [grid, np.array([-0.0, 0.0, 1.0], f32),
+             np.random.default_rng(0).random(1_000_000, dtype=np.float32)]
+    for toward in (f32(2), f32(-1)):          # two ulps up and down
+        z = grid
+        for _ in range(2):
+            z = np.nextafter(z, toward)
+            parts.append(z)
+    z = np.concatenate(parts)
+    z = z[(z >= 0) & (z <= 1)]
+    assert z.size > 1_150_000
+    zs = z * f32(32767.0)                                  # f32, rounded
+    assert ((zs >= 0) & (zs <= 32767)).all()               # clamps: identity
+    rz = np.floor(zs.astype(np.float64) + 2.0 ** 23).astype(f32)
+    got = (rz.view(np.uint32).astype(np.uint64) << 17) & 0xFFFFFFFF
+    want = (np.trunc(np.clip(zs, 0, 32767)).astype(np.uint64) << 17) \
+        & 0xFFFFFFFF
+    np.testing.assert_array_equal(got, want)
+    assert (want >= 1 << 31).any()                         # the sign bit
+
+
+def test_kernel_cover_test_identity():
+    """B6 tests c0 = (1 - c1) - c2 >= 0 as (1 - c1) >= c2, under c1 >= 0
+    and c2 >= 0 (csrc/raster_bin.cu): the same verdict in f32 on seeded
+    values around the edge, ties, subnormals, zeros of both signs,
+    infinities and NaN."""
+    f32 = np.float32
+    rng = np.random.default_rng(1)
+    c1 = rng.random(200_000, dtype=np.float32) * f32(1.5)
+    edge = f32(1) - c1                       # c2 within 3 ulps of the edge
+    c2 = edge + rng.integers(-3, 4, c1.size).astype(f32) * np.spacing(edge)
+    special = np.array([0.0, -0.0, 1e-45, 1e-38, 1.0, 1.0 - 2.0 ** -24,
+                        3e38, np.inf, -np.inf, np.nan], f32)
+    a, b = np.meshgrid(special, special)
+    c1 = np.concatenate([c1, a.ravel(), rng.standard_normal(10_000, f32)])
+    c2 = np.concatenate([c2, b.ravel(), rng.standard_normal(10_000, f32)])
+    with np.errstate(invalid="ignore", over="ignore"):
+        t = f32(1) - c1
+        c0 = t - c2
+        plain = np.minimum(np.minimum(c1, c2), c0) >= 0
+        kernel = (c1 >= 0) & (c2 >= 0) & (t >= c2)
+    np.testing.assert_array_equal(kernel, plain)
+    assert plain.sum() > 1000 and (~plain).sum() > 1000
+
+
 def test_shapes_are_checked():
     tile, x0, y0, coef = (torch.from_numpy(a) for a in _operands())
     for bad in ((tile, x0[:-1], y0, coef), (tile, x0, y0, coef[:, :-1]),

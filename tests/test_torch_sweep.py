@@ -91,6 +91,50 @@ def test_b1_plain_matches_jax_twin_and_pallas(dtype):
         np.testing.assert_allclose(n(got), n(pal), **TOL)
 
 
+def test_b1_sample_counts_bound_the_work():
+    """The counts behind B1's bound (`chip_smoke.bound_sweep`): per ray,
+    `live` (the samples the plain march composites) and `needed` (those
+    met while its transmittance is still >= 0.01, where the kernel stops
+    a face), and the distinct texels the needed samples read. needed <=
+    live <= the samples inside the ray's [s_in, s_end] window; needed ==
+    live on every ray whose transmittance ends above 0.01; a ray that
+    composites anything needs a sample; the early exit cuts some rays of
+    this case (eyes outside, inside and grazing the box, densities up to
+    1); the texels read are some, not all, of the referenced stacks';
+    and the scatter is the plain version's."""
+    (vols, lights, tex, eye_faces, params, smp, run, n_eff, light_ids,
+     s) = _b1_case()
+    eye_f = t(eye_faces)
+    pp = psw.SweepParams(*(torch.from_numpy(np.array(x)) for x in params))
+    run = torch.from_numpy(np.array(run))
+    args = (t(vols), _port_light(lights), torch.from_numpy(tex), eye_f, pp,
+            torch.from_numpy(np.array(smp)), run, s, s)
+    kw = dict(n_eff_b=t(n_eff), light_ids=torch.from_numpy(light_ids))
+    acc, counts = psw_ops.sweep_march_plain(*args, **kw, sample_counts=True)
+    live, needed = counts["live"], counts["needed"]
+    # the window: the planes whose sample lies in [s_in, s_end], at the
+    # march's own sample positions
+    ew = eye_f[..., 2][:, :, None, None]
+    ew_c = torch.clamp(ew, -1.0, 1.0)
+    delta = (1.0 - ew_c) / s
+    inv_gz = 1.0 / torch.clamp(1.0 - ew, min=1e-6)
+    ray_ok = pp.active & run[:, :, None, None]
+    window = torch.zeros_like(live)
+    for k in range(s):
+        sk = (ew_c + (k + 0.5) * delta - ew) * inv_gz
+        window += ray_ok & (sk >= pp.s_in) & (sk <= pp.s_end)
+    assert bool((needed <= live).all()) and bool((live <= window).all())
+    alpha = acc[:, :, 3]
+    clear = alpha < 0.985                   # transmittance stays >= 0.015
+    assert torch.equal(needed[clear], live[clear])
+    assert bool((needed[alpha > 0.0] >= 1).all())
+    assert int(needed.sum()) < int(live.sum()) <= int(window.sum())
+    n_src, n_light = len(set(tex.tolist())), len(set(light_ids.tolist()))
+    assert 0 < counts["vol_texels"] < n_src * vols.shape[1] ** 3
+    assert 0 < counts["light_texels"] < n_light * lights.shape[-1] ** 3
+    assert torch.equal(acc, psw_ops.sweep_march_plain(*args, **kw))
+
+
 def test_lod_partition_order_matches_jax():
     rng = np.random.RandomState(3)
     nv = 40
