@@ -2,6 +2,7 @@
 """Drive the PyTorch port (`multivolumes_tpu_torch`) once on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the root of a checkout; one CUDA card
+    python3 chip_smoke.py --profile-reference   # phase 10 alone, profiled
 
 Phases (any failure exits non-zero, and no result line is printed):
   1. the card: `nvidia-smi` name and power limit, torch and CUDA versions;
@@ -72,7 +73,20 @@ Phases (any failure exits non-zero, and no result line is printed):
      `sharding.placement_check(8)` and `sharding.dryrun(8)` on the card;
   9. the binned-raster eval kernel (B6) against its plain version at the
      microbench's default size (exact equality), then the microbench
-     itself, `tools.raster_bin_microbench.main`, whose table is printed.
+     itself, `tools.raster_bin_microbench.main`, whose table is printed;
+ 10. the reference phase (after the mesh demo; its wall time printed):
+     the demo with `lod_bucket_caps=None` and the warp composite, its one
+     B1 launch (64 volumes at S=128, `sweep_planes` planes) against the
+     plain version (the `sweep@unbucketed` row; outliers counted: a share
+     of at most 1e-5 of the elements, each within 0.15, ROADMAP.md
+     section C), then 2 frames through `render` and `render_block` as in
+     4; the sweep light path refusing a rotated world; the demo in full
+     reference semantics (reference march and light, gather composite)
+     for 2 frames with per-pass times and peak memory, then the same
+     with every volume world rotated through `set_volume_world`, B1-B4
+     launched by neither; and the pinned `reference_4vol` golden
+     (tests/goldens/, read with numpy) rendered on the card at its limits
+     (mean < 2e-3, p99.9 < 3e-2).
 
 Each kernel's bound (`bound_ms`) is the larger of two times: the bytes
 it must move (each input read once, each output written once) over the
@@ -128,11 +142,16 @@ NO_MESH = ("sweep", "composite", "light_self_scan", "light_advect_mul", "taa")
 WITH_MESH = ("sweep", "composite_depth", "light_self_scan_sm",
              "light_advect_mul", "taa")
 # summary row name -> (launch-count key, the path whose counts it reports)
-ROW_KERNEL = {"composite@depth": ("composite_depth", "mesh"),
+ROW_KERNEL = {"sweep@unbucketed": ("sweep", "unbucketed"),
+              "composite@depth": ("composite_depth", "mesh"),
               "light_self_scan@sm": ("light_self_scan_sm", "mesh"),
               "composite@band": ("composite_band", "sharded"),
               "taa_band": ("taa_band", "sharded"),
               "raster_bin_eval": ("raster_bin_eval", "raster_bin")}
+# the kernels of the un-bucketed frame with the warp composite, and of the
+# frame in full reference semantics (the gather passes have none but B5)
+UNBUCKETED = ("sweep", "light_self_scan", "light_advect_mul", "taa")
+REFERENCE = ("taa",)
 # the kernels of the sharded frame step on a mesh with a rows axis
 SHARDED = ("sweep", "composite_band", "light_self_scan", "light_advect_mul",
            "taa_band")
@@ -328,7 +347,8 @@ def bound_sweep(args, kwargs):
     vols, light, tex = args[:3]
     params, size = args[4], args[8]
     _acc, counts = sweep_ops.sweep_march_plain(
-        *args, n_eff_b=kwargs.get("n_eff_b"), light_ids=kwargs["light_ids"],
+        *args, n_eff_b=kwargs.get("n_eff_b"),
+        light_ids=kwargs.get("light_ids"),
         sample_counts=True)
     out = 4 * tex.shape[0] * 6 * 4 * size * size
     nbytes = (counts["vol_texels"] * 4 * vols.element_size()
@@ -554,6 +574,13 @@ def main() -> int:
     # --- 3. each kernel against its plain version -------------------------
     dev = torch.device("cuda")
     cfg = RenderConfig(**DEMO)
+    if sys.argv[1:] == ["--profile-reference"]:
+        # the reference phase alone, with a frame of the full reference
+        # semantics under the profiler: its device busy time (the profile
+        # of half a million kernels takes minutes, too long for every run)
+        phase_reference(cfg, dev, profile=True)
+        log(smi_line)
+        return 0
     mesh_path = write_torus_obj(os.path.join(HERE, "build",
                                              "torus70k.obj"), MESH_TRIS)
     engine, results = phase_kernels(cfg, dev)
@@ -564,6 +591,12 @@ def main() -> int:
     launches["mesh"] = phase_demo(mesh_engine, cfg, dev, WITH_MESH,
                                   frames=4, closeup=True)
     del mesh_engine
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    ref_results, launches["unbucketed"] = phase_reference(cfg, dev)
+    results += ref_results
+    phase_golden(dev)
+    log(f"[reference] the reference phase took {time.time() - t0:.1f} s")
     torch.cuda.empty_cache()
     sharded_results, launches["sharded"] = phase_sharded(cfg, dev)
     torch.cuda.empty_cache()
@@ -1005,7 +1038,7 @@ def drive(what, fn, frames, kernels):
 
 
 def phase_demo(engine, cfg, dev, kernels, frames: int = 8,
-               closeup: bool = False):
+               closeup: bool = False, what=None):
     """Drive the main path through the engine, frame by frame and as one
     block from the same starting state; return the launch counts of the
     frame-by-frame run. With a mesh, the raster preset is picked before
@@ -1018,7 +1051,7 @@ def phase_demo(engine, cfg, dev, kernels, frames: int = 8,
     from multivolumes_tpu_torch.core import camera as cam_lib
     from multivolumes_tpu_torch.render import frame as frame_lib
 
-    what = "mesh demo" if engine.has_mesh else "demo"
+    what = what or ("mesh demo" if engine.has_mesh else "demo")
     times_s = [0.25 * i for i in range(frames)]
     cams = [cam_lib.orbit_camera(tm, cfg.aspect_ratio, device=dev)
             for tm in times_s]
@@ -1200,6 +1233,171 @@ def profile_frames(engine, cams, eyes, what, frames: int = 2):
     log(f"[profile] {what} top kernels (device ms per frame, launches per "
         f"frame): " + "; ".join(f"{n[:60]} {t:.3f} x{c / frames:.0f}"
                                 for n, (t, c) in top))
+
+
+def phase_reference(cfg, dev, frames: int = 2, profile: bool = False):
+    """The demo cell outside the main path's settings: (1) un-bucketed
+    (`lod_bucket_caps=None`) with the warp composite, through `render` and
+    `render_block` like the main path, its one B1 launch of every volume
+    at the full resolution held against the plain version; (2) in full
+    reference semantics (reference march and light, gather composite),
+    two frames with per-pass times and peak memory; (3) the same with
+    rotated volume worlds set through the engine, which the sweep light
+    path refuses. With `profile`, one more frame of (2) under the
+    profiler. Returns (the B1 row, the launch counts of (1))."""
+    import torch
+
+    from multivolumes_tpu_torch.core import camera as cam_lib
+    from multivolumes_tpu_torch.engine import MultiRayCaster
+    from multivolumes_tpu_torch.ops import sweep as sweep_ops
+    from multivolumes_tpu_torch.render import frame as frame_lib
+    from multivolumes_tpu_torch.render import sweep as sweep_mod
+
+    cfg_u = cfg.with_(composite_mode="warp", lod_bucket_caps=None)
+    t0 = time.time()
+    engine = MultiRayCaster(cfg_u, device=dev)
+    torch.cuda.synchronize()
+    log(f"[reference] un-bucketed warp scene built in {time.time() - t0:.1f}"
+        f" s")
+    cam0 = cam_lib.orbit_camera(0.0, cfg.aspect_ratio, device=dev)
+    with capture([(sweep_mod, "sweep_march")]) as calls:
+        frame_lib.render_frame(clone_state(engine.state), cam0,
+                               engine.config)
+    (a, k) = calls["sweep_march"]
+    check(len(calls["sweep_march*"]) == 1, "the un-bucketed frame launched "
+          f"B1 {len(calls['sweep_march*'])} times")
+    k = dict(k)
+    k.pop("impl", None)
+    check(a[2].shape[0] == cfg.num_volumes and a[8] == cfg.cube_map_size
+          and a[7] == (cfg.sweep_planes or cfg.cube_map_size),
+          f"un-bucketed B1 launch: {a[2].shape[0]} volumes, S={a[8]}, "
+          f"{a[7]} planes")
+    info = sweep_ops.sweep_launch_info(a[8], a[7], a[0].shape[1],
+                                       a[1].shape[1],
+                                       a[0].dtype == torch.bfloat16)
+    log(f"[occupancy] sweep@unbucketed ({a[0].dtype}): {info}")
+    # counted as the whole buckets (a share of at most 1e-5 of the
+    # texels), each within 0.15: at the full resolution of the far volumes
+    # (the eye 20 half-sizes away) a sample whose density lies at the
+    # 0.01 threshold flips on a one-ulp difference of its tap coordinate
+    # and carries up to 0.139 of colour (ROADMAP.md section C)
+    results = [compare_kernel(
+        "sweep@unbucketed", sweep_mod.sweep_march, a, k,
+        allclose_tol(2e-3, 2e-2, "sweep unbucketed", outlier_share=1e-5,
+                     outlier_max=0.15),
+        bound_sweep, reps=(5, 1), device_kernel="sweep_kernel")]
+    del calls, a, k
+    launches = phase_demo(engine, cfg_u, dev, UNBUCKETED, frames=frames,
+                          what="un-bucketed warp demo")
+    worlds = engine.state.volume_worlds.cpu().numpy()
+    try:
+        engine.set_volume_world(0, float(worlds[0, 0, 0]) * 2.0,
+                                worlds[0, 3, :3], rotation_y=0.5)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "the sweep light path took a rotated volume world")
+    del engine
+    torch.cuda.empty_cache()
+
+    cfg_r = cfg.with_(march_mode="reference", light_mode="reference",
+                      composite_mode="gather")
+    engine = MultiRayCaster(cfg_r, device=dev)
+    for rotated in (False, True):
+        what = "reference" + (", rotated" if rotated else "")
+        if rotated:
+            for i in range(cfg.num_volumes):
+                engine.set_volume_world(i, float(worlds[i, 0, 0]) * 2.0,
+                                        worlds[i, 3, :3],
+                                        rotation_y=0.35 + 0.1 * i)
+            check(abs(float(engine.state.volume_worlds[5, 0, 2])) > 0.1,
+                  "the volume worlds are not rotated")
+        cams = [cam_lib.orbit_camera(0.25 * f, cfg.aspect_ratio, device=dev)
+                for f in range(frames)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        passes, imgs = [], []
+
+        def render_each():
+            for cam in cams:
+                events = []
+
+                def mark(name):
+                    ev = torch.cuda.Event(enable_timing=True)
+                    ev.record()
+                    events.append((name, ev))
+
+                out = frame_lib.render_frame(engine.state, cam,
+                                             engine.config, timer=mark)
+                engine.state = out.state
+                torch.cuda.synchronize()
+                passes.append({events[i][0]: events[i][1].elapsed_time(
+                    events[i + 1][1]) for i in range(len(events) - 1)})
+                imgs.append(out)
+            return imgs
+
+        outs, ref_launches = drive(what, render_each, frames, REFERENCE)
+        others = {n: c for n, c in ref_launches.items()
+                  if c and n not in REFERENCE}
+        check(not others, f"the {what} frames launched {others}")
+        for f, p in enumerate(passes):
+            log(f"[reference] {what} frame {f} per pass (ms, CUDA events): "
+                + " ".join(f"{nm} {tm:.3f}" for nm, tm in p.items())
+                + f"; total {sum(p.values()):.3f}")
+        log(f"[reference] {what} peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        img, alpha = outs[-1].image, outs[-1].hdr[..., 3]
+        check(tuple(img.shape) == (cfg.height, cfg.width, 3),
+              f"{what} image shape {tuple(img.shape)}")
+        check(bool(torch.isfinite(img).all()), f"non-finite {what} image")
+        cover = float(((alpha > 0.05) & (alpha <= 0.9998)).float().mean())
+        log(f"[reference] {what}: volume alpha > 0.05 on {cover:.3f} of "
+            f"pixels")
+        check(cover > 0.02, f"{what}: volume coverage {cover:.4f} too small")
+        if profile and not rotated:
+            profile_frames(engine, cams, [None] * frames, what, frames=1)
+    del engine
+    torch.cuda.empty_cache()
+    return results, launches
+
+
+def phase_golden(dev, frames: int = 2):
+    """The pinned `reference_4vol` golden (tests/goldens/, the JAX
+    package's reference-semantics render on the CPU) rendered on the card:
+    its config as tools/make_goldens.py states it, the orbit camera at
+    f/60 with TAA, mean < 2e-3 and p99.9 < 3e-2
+    (tests/test_goldens.py:37-41)."""
+    import numpy as np
+    import torch
+
+    from multivolumes_tpu_torch.config import RenderConfig
+    from multivolumes_tpu_torch.core import camera as cam_lib
+    from multivolumes_tpu_torch.render import frame as frame_lib
+    from multivolumes_tpu_torch.scene import state as state_lib
+
+    cfg = RenderConfig(
+        width=160, height=96, grid_size=16, light_grid_size=8,
+        max_ray_samples=24, max_light_samples=8, num_volumes=4,
+        num_volume_srcs=2, cube_map_size=16, shadow_map_size=64,
+        use_bf16=False, march_mode="reference", light_mode="reference",
+        composite_mode="gather", packed_composite=False)
+    state = state_lib.create_scene(cfg, device=dev)
+    for f in range(frames):
+        out = frame_lib.render_frame(
+            state, cam_lib.orbit_camera(f / 60.0, cfg.aspect_ratio,
+                                        device=dev), cfg, use_taa=True)
+        state = out.state
+    got = out.image.float().cpu().numpy()
+    path = os.path.join(HERE, "tests", "goldens", "reference_4vol.npz")
+    want = np.load(path)["image"].astype(np.float32)
+    check(got.shape == want.shape, f"golden shape {got.shape}")
+    diff = np.abs(got - want)
+    mean, p999 = float(diff.mean()), float(np.percentile(diff, 99.9))
+    log(f"[golden] reference_4vol on the card: mean {mean:.3e}  p99.9 "
+        f"{p999:.3e}  max {float(diff.max()):.3e}")
+    check(mean < 2e-3 and p999 < 3e-2,
+          f"reference_4vol: mean {mean:.3e} (< 2e-3), p99.9 {p999:.3e} "
+          f"(< 3e-2)")
 
 
 def phase_small(small, dev, frames: int = 3, mesh_path=None):

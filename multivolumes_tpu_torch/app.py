@@ -9,7 +9,10 @@ scene with TAA (optionally along the orbit-camera animation of
 (the reference's software-adapter flag) renders on the CPU instead, and
 without `--warp` and without a CUDA device it exits non-zero. `--mesh`
 loads an OBJ as the opaque mesh (the reference's `-mesh`); each frame
-then picks the mesh raster's preset from the host-side camera pose. Run:
+then picks the mesh raster's preset from the host-side camera pose.
+`--march reference` renders in the reference semantics (per-ray march,
+gather composite), `--stats` adds the cull/LOD stats to each frame's
+line, and `--interactive` takes the hotkeys, [o] and [w] among them. Run:
 
     python -m multivolumes_tpu_torch.app --numVolumes 64 --frames 8 \\
         --animate --mesh bunny.obj --out out.png
@@ -31,12 +34,10 @@ from multivolumes_tpu_torch.utils.png import write_png
 from multivolumes_tpu_torch.utils.steptimer import StepTimer
 from multivolumes_tpu_torch.core import camera as cam_lib
 from multivolumes_tpu_torch.engine import MultiRayCaster
+from multivolumes_tpu_torch.render import cull as cull_lib
+from multivolumes_tpu_torch.render.perframe import build_per_object
 from multivolumes_tpu_torch.render.postprocess import srgb_encode
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"not ported to multivolumes_tpu_torch yet: {what} (see ROADMAP.md)")
+from multivolumes_tpu_torch.utils import stats as stats_lib
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -79,8 +80,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "(StepTimer::SetFixedTimeStep); default variable")
     p.add_argument("--no-taa", action="store_true")
     p.add_argument("--march", choices=["sweep", "reference"], default="sweep",
-                   help="view-march algorithm ('reference' is not ported "
-                        "yet)")
+                   help="view-march algorithm: the plane sweep, or the "
+                        "reference semantics (per-ray march, gather "
+                        "composite; see render/raymarch.py)")
     p.add_argument("--warp", action="store_true",
                    help="render on the CPU (the reference's -warp "
                         "software-adapter flag, MultiVolumes.cpp:110-128)")
@@ -90,43 +92,57 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--f32", dest="bf16", action="store_false",
                    help="full-precision sweep stacks")
     p.add_argument("--stats", action="store_true",
-                   help="per-frame cull/LOD stats (not ported yet)")
+                   help="print per-frame cull/LOD stats (F1-style overlay)")
     p.add_argument("--interactive", action="store_true",
                    help="read hotkey commands from stdin between frames, "
                         "the headless analog of the reference's runtime "
                         "hotkeys (`MultiVolumes::OnKeyUp`, "
                         "MultiVolumes.cpp:447-479): one letter per line: "
-                        "[p]ause (Space), [a]nimate, [t] TAA, [f] FPS "
-                        "line (F1), [s] screenshot now (F11), [m]esh "
-                        "on/off, [q]uit. [o] composite cycle and [w] "
-                        "march mode select passes not ported yet")
+                        "[p]ause (Space), [a]nimate, [m]esh on/off, [o] "
+                        "cycle composite (the OIT-method cycle: tile, "
+                        "warp, gather), [w] march mode (sweep / "
+                        "reference), [t] TAA, [f] FPS line (F1), [s] "
+                        "screenshot now (F11), [q]uit")
     p.add_argument("--out", type=str, default="frame.png")
     return p
+
+
+# the reference's [O] cycles its 3 OIT methods (k-buffer / ray query /
+# DXR); here the 3 composites, which share the k-buffer semantics
+_OIT_CYCLE = ("tile", "warp", "gather")
 
 
 def apply_command(cmd: str, engine, ui: dict) -> bool:
     """One hotkey command against the live engine (returns False on
     quit)."""
+    cfg = engine.config
     if cmd == "q":
         return False
-    if cmd in ("o", "w"):
-        raise _unported({"o": "the warp and gather composites ([o] hotkey)",
-                         "w": "the reference march ([w] hotkey)"}[cmd])
-    if cmd == "m":
+    if cmd == "o":
+        cur = (_OIT_CYCLE.index(cfg.composite_mode)
+               if cfg.composite_mode in _OIT_CYCLE else -1)
+        mode = _OIT_CYCLE[(cur + 1) % len(_OIT_CYCLE)]
+        engine.config = cfg.with_(composite_mode=mode)
+        print(f"composite={mode}")
+    elif cmd == "w":
+        mode = "reference" if cfg.march_mode == "sweep" else "sweep"
+        engine.config = cfg.with_(march_mode=mode)
+        print(f"march={mode}")
+    elif cmd == "m":
         if engine.has_mesh:
             engine.config = engine.config.with_(
                 show_mesh=not engine.config.show_mesh)
             print(f"mesh={engine.config.show_mesh}")
         else:
             print("no mesh loaded")
-    if cmd in ("p", "a", "t", "f"):
+    elif cmd in ("p", "a", "t", "f"):
         key = {"p": "paused", "a": "animate", "t": "taa", "f": "fps"}[cmd]
         ui[key] = not ui[key]
         print(f"{key}={ui[key]}")
     elif cmd == "s":
         ui["screenshot"] = True
     elif cmd:
-        print(f"unknown command {cmd!r} (p a t f s m q)")
+        print(f"unknown command {cmd!r} (p a m o w t f s q)")
     return True
 
 
@@ -187,8 +203,6 @@ def write_image(path: str, img: torch.Tensor) -> None:
 
 def main(argv=None) -> None:
     args = build_arg_parser().parse_args(argv)
-    if args.stats:
-        raise _unported("the per-frame cull/LOD stats (--stats)")
     if not args.warp and not torch.cuda.is_available():
         sys.exit("multivolumes_tpu_torch.app: no CUDA device; pass --warp "
                  "to render on the CPU")
@@ -266,6 +280,14 @@ def main(argv=None) -> None:
         msg = f"frame {f}: {(time.perf_counter() - t0) * 1000:.1f} ms"
         if timer.frames_per_second and ui["fps"]:
             msg += f" | {timer.frames_per_second} fps"
+        if args.stats:
+            po = build_per_object(engine.state.volume_worlds,
+                                  camera.view_proj)
+            cull = cull_lib.cull_volumes(
+                po, camera.eye, [cfg.width, cfg.height],
+                cfg.max_ray_samples, cfg.cube_map_size, cfg.num_cube_mips)
+            msg += " | " + stats_lib.format_stats(
+                stats_lib.frame_stats(cull))
         print(msg, flush=True)
 
     if img is not None:

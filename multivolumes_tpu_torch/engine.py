@@ -51,7 +51,10 @@ class MultiRayCaster:
 
     def _set_light_axis(self) -> None:
         """Bake the shear-warp sweep axis (argmax |light dir|) into the
-        config: the light is a host-side scene setting."""
+        config: the light is a host-side scene setting. The reference
+        light march has no sweep axis."""
+        if self.config.light_mode != "sweep":
+            return
         self.config = self.config.with_(
             light_axis=lightsweep.light_axis(self.state.light_pos))
 
@@ -114,7 +117,10 @@ class MultiRayCaster:
         footprints (`light_sout`) depend on density, light direction and
         scale, so world moves alone do not need this. A loaded mesh
         shadows the maps (whether or not it is shown, as the JAX engine
-        does)."""
+        does). The reference light march refreshes one volume a frame and
+        has no cache: nothing to do there."""
+        if self.config.light_mode != "sweep":
+            return
         st, cfg = self.state, self.config
         po = build_per_object(st.volume_worlds, torch.eye(
             4, dtype=torch.float32, device=self.device))
@@ -142,7 +148,10 @@ class MultiRayCaster:
         """The shear-warp light sweep (`render/lightsweep.py`) assumes
         uniform-scale, rotation-free volume worlds (it reads world[0, 0]
         as the scale); rotated or anisotropic worlds would shadow wrong,
-        so they are refused here."""
+        so they are refused there. The reference light march takes any
+        world."""
+        if self.config.light_mode != "sweep":
+            return
         w = np.asarray(worlds, np.float32).reshape(-1, 4, 4)
         upper = w[:, :3, :3]
         s = upper[:, 0, 0]
@@ -150,12 +159,18 @@ class MultiRayCaster:
         if not np.allclose(upper, expect, atol=1e-5 * np.abs(s).max()):
             raise ValueError(
                 "light_mode='sweep' requires uniform-scale, unrotated "
-                "volume worlds; the reference light march for rotated or "
-                "anisotropic volumes is not ported yet (see ROADMAP.md)")
+                "volume worlds; use light_mode='reference' for rotated or "
+                "anisotropic volumes (see render/lightsweep.py)")
 
-    def set_volume_world(self, i: int, size: float, pos) -> None:
-        w = math3d.scaling(size * 0.5, self.device) @ math3d.translation(
-            np.asarray(pos, np.float32), self.device)
+    def set_volume_world(self, i: int, size: float, pos,
+                         rotation_y: float = 0.0) -> None:
+        """World of volume i: scale(size / 2), then a rotation of
+        `rotation_y` radians about y (light_mode "reference" only), then
+        the translation to `pos`."""
+        w = math3d.scaling(size * 0.5, self.device)
+        if rotation_y:
+            w = w @ math3d.rotation_y(rotation_y, self.device)
+        w = w @ math3d.translation(np.asarray(pos, np.float32), self.device)
         self._check_worlds(w.cpu().numpy()[None])
         worlds = self.state.volume_worlds.clone()
         worlds[i] = w

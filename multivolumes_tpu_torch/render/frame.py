@@ -13,9 +13,22 @@ composite's taps (B2's depth variant), its cached shadow map shades the
 light cohort (B3's shadow-map variant), it is the opaque background of
 the volumes, and its velocity reprojects the TAA history.
 
-PyTorch runs eagerly, so there is no jit boundary; the frame reads no
-device value on the host except where the composite prep checks the swap
-flags. The light stacks of `state` are updated in place.
+The config picks the passes as the JAX frame does: `light_mode=
+"reference"` or `point_light` refresh one volume's map a frame with the
+gather light march (`lightmarch.py`); `march_mode="reference"` marches
+the cube maps per ray (`raymarch.ray_march_view`) and composites with the
+gather composite and its per-pixel march; under the sweep,
+`composite_mode` "auto"/"tile" takes B2, "warp" the tile warps
+(`warp.composite_oit_warp`) and "gather" the CubeCast gather
+(`composite.composite_oit`); `lod_bucket_caps=None` or
+`adaptive_raymarch=False` marches every volume at full resolution in
+one B1 launch (`sweep.ray_march_view_sweep`).
+
+PyTorch runs eagerly, so there is no jit boundary. The main path reads
+no device value on the host except where the composite prep checks the
+swap flags; the reference marches read their done masks every few steps
+and the warp composite its branch flags once a volume. The light stacks
+of `state` are updated in place.
 
 With a device mesh (`render_frame(..., mesh=mesh)`, the state a
 `parallel.sharding.ShardedState`) the same passes run as the sharded
@@ -33,8 +46,10 @@ import torch
 
 from multivolumes_tpu_torch.config import RenderConfig
 from multivolumes_tpu_torch.core.camera import Camera
+from multivolumes_tpu_torch.render import composite as composite_lib
 from multivolumes_tpu_torch.render import cull as cull_lib
-from multivolumes_tpu_torch.render import lightsweep, postprocess
+from multivolumes_tpu_torch.render import lightmarch, lightsweep
+from multivolumes_tpu_torch.render import postprocess, raymarch
 from multivolumes_tpu_torch.render import mesh as mesh_lib
 from multivolumes_tpu_torch.ops import taa as taa_ops
 from multivolumes_tpu_torch.render import taa as taa_lib
@@ -51,24 +66,38 @@ class FrameOutput(NamedTuple):
     state: SceneState
 
 
-def check_supported(config: RenderConfig) -> None:
-    """Raise for the settings whose passes are not ported yet (each is a
-    queue entry in ROADMAP.md)."""
-    missing = []
-    if config.march_mode != "sweep" or config.light_mode != "sweep":
-        missing.append("the reference march twins (march_mode/light_mode "
-                    "'reference')")
-    if config.point_light:
-        missing.append("point lights (the reference light march)")
+# the settings of the main path, the only ones the sharded step runs
+_SHARDED_DEFAULTS = dict(march_mode="sweep", light_mode="sweep",
+                         point_light=False, adaptive_raymarch=True)
+
+
+def check_supported(config: RenderConfig, sharded: bool = False) -> None:
+    """Raise for settings the JAX package does not have either, and, with
+    `sharded`, for those the sharded frame step does not run yet: the
+    reference modes, point lights, the warp and gather composites and the
+    un-bucketed sweep (a queue entry in ROADMAP.md)."""
+    bad = []
+    if config.march_mode not in ("sweep", "reference"):
+        bad.append(f"march_mode={config.march_mode!r}")
+    if config.light_mode not in ("sweep", "reference"):
+        bad.append(f"light_mode={config.light_mode!r}")
+    if config.composite_mode not in ("auto", "tile", "warp", "gather"):
+        bad.append(f"composite_mode={config.composite_mode!r}")
+    if bad:
+        raise ValueError("unknown setting: " + ", ".join(bad))
+    if not sharded:
+        return
+    missing = [f"{k}={getattr(config, k)!r}"
+               for k, v in _SHARDED_DEFAULTS.items()
+               if getattr(config, k) != v]
     if config.composite_mode not in ("auto", "tile"):
-        missing.append(f"composite_mode={config.composite_mode!r} (the warp "
-                    "and gather composite twins)")
-    if config.lod_bucket_caps is None or not config.adaptive_raymarch:
-        missing.append("the un-bucketed sweep (lod_bucket_caps=None or "
-                    "adaptive_raymarch=False)")
+        missing.append(f"composite_mode={config.composite_mode!r}")
+    if config.lod_bucket_caps is None:
+        missing.append("lod_bucket_caps=None")
     if missing:
         raise NotImplementedError(
-            "not ported to multivolumes_tpu_torch yet: " + "; ".join(missing)
+            "the sharded frame step of multivolumes_tpu_torch runs the main "
+            "path's settings only, not " + ", ".join(missing)
             + " (see ROADMAP.md)")
 
 
@@ -84,7 +113,7 @@ def render_frame(state: SceneState, camera: Camera, config: RenderConfig,
     at the end. With `mesh` (a `parallel.collectives.DeviceMesh`), `state`
     is a `ShardedState` on that mesh and so is the returned state; the
     image and hdr are assembled on `mesh.root`."""
-    check_supported(config)
+    check_supported(config, sharded=mesh is not None)
     width, height = config.width, config.height
     mark = timer if timer is not None else (lambda name: None)
     show_mesh = config.show_mesh if show_mesh is None else show_mesh
@@ -111,33 +140,98 @@ def render_frame(state: SceneState, camera: Camera, config: RenderConfig,
         mesh_out = mesh_lib.render_mesh(state, camera, config)
         depth_map = mesh_out.depth
 
-    # --- light: refresh one cohort round-robin (config.light_refresh) ----
+    # --- light ------------------------------------------------------------
     mark("light")
-    ids = _cohort(config, state.frame_idx, dev)
-    axis = (config.light_axis if config.light_axis is not None
-            else lightsweep.light_axis(state.light_pos))
-    maps_c, light_sout = lightsweep.ray_march_light_sweep_update(
-        state.rho_light, state.ao_static, state.grad_dir, state.vol_tex_ids,
-        per_object, state.light_pos, state.light_color, state.ambient,
-        state.sh_coeffs, config.max_light_samples, axis,
-        has_light_probe=config.has_light_probe, sub_ids=ids,
-        sout_cache=state.light_sout, impl=impl,
-        shadow_map=mesh_out.shadow if has_mesh else None,
-        shadow_vp=mesh_out.shadow_vp if has_mesh else None)
-    state.light_maps[ids] = maps_c.to(state.light_maps.dtype)
-    state.light_sweep[ids] = to_light_sweep(maps_c, state.light_sweep.dtype)
+    light_sout = state.light_sout
+    if config.light_mode == "sweep" and not config.point_light:
+        # refresh one cohort round-robin (config.light_refresh)
+        ids = _cohort(config, state.frame_idx, dev)
+        axis = (config.light_axis if config.light_axis is not None
+                else lightsweep.light_axis(state.light_pos))
+        maps_c, light_sout = lightsweep.ray_march_light_sweep_update(
+            state.rho_light, state.ao_static, state.grad_dir,
+            state.vol_tex_ids, per_object, state.light_pos,
+            state.light_color, state.ambient, state.sh_coeffs,
+            config.max_light_samples, axis,
+            has_light_probe=config.has_light_probe, sub_ids=ids,
+            sout_cache=state.light_sout, impl=impl,
+            shadow_map=mesh_out.shadow if has_mesh else None,
+            shadow_vp=mesh_out.shadow_vp if has_mesh else None)
+        state.light_maps[ids] = maps_c.to(state.light_maps.dtype)
+        state.light_sweep[ids] = to_light_sweep(maps_c,
+                                                state.light_sweep.dtype)
+    else:
+        # reference semantics: the gather march of one volume a frame;
+        # its row of the sweep's stack follows
+        lightmarch.ray_march_light(
+            state.volumes, state.vol_tex_ids, state.light_maps, per_object,
+            cull, state.frame_idx,
+            mesh_out.shadow if has_mesh else None,
+            mesh_out.shadow_vp if has_mesh else None,
+            state.light_pos, state.light_color, state.ambient,
+            state.sh_coeffs, config.max_light_samples,
+            has_light_probe=config.has_light_probe,
+            point_light=config.point_light)
+        vid = lightmarch.select_update_volume(
+            cull.visible, state.frame_idx).reshape(1)
+        state.light_sweep.index_copy_(0, vid, to_light_sweep(
+            state.light_maps.index_select(0, vid), state.light_sweep.dtype))
 
-    # --- view-space LOD cube-map march ----------------------------------
+    # --- view-space cube-map march ----------------------------------------
     mark("sweep")
-    swap_basis = warp_lib.screen_basis(screen_to_world, eye)
-    lod_cull = cull._replace(use_cube_map=cull.visible)
-    swept = sweep_lib.ray_march_view_sweep_lod(
-        state.volumes_sweep, state.vol_tex_ids, state.light_sweep,
-        per_object, lod_cull, eye, config.cube_map_size, swap_basis,
-        bucket_caps=config.lod_bucket_caps, vol_zmax=state.vol_zmax,
-        impl=impl, depth_map=depth_map)
-    cull_for_composite = cull._replace(mip_level=swept.mips,
-                                       use_cube_map=cull.visible)
+    n = config.num_volumes
+    s = config.cube_map_size
+    order = swap = lod_order = lod_buckets = None
+    use_raycast = config.march_mode != "sweep"
+    # "auto"/"tile": the screen-tile kernel; "warp": the tile warps;
+    # "gather": the per-pixel CubeCast (the reference march's composite)
+    use_warp = (not use_raycast
+                and config.composite_mode in ("auto", "warp", "tile"))
+    use_tile = use_warp and config.composite_mode in ("auto", "tile")
+    if use_raycast:
+        cube_maps = raymarch.ray_march_view(
+            state.volumes, state.vol_tex_ids, state.light_maps.movedim(1, -1),
+            per_object, cull, eye, depth_map, s, config.max_ray_samples,
+            adaptive=config.adaptive_raymarch)
+        cull_for_composite = cull
+    elif config.lod_bucket_caps is not None and config.adaptive_raymarch:
+        # the sweep marches every visible face; the composite reads the
+        # effective mips the buckets gave
+        lod_cull = cull._replace(use_cube_map=cull.visible)
+        swept = sweep_lib.ray_march_view_sweep_lod(
+            state.volumes_sweep, state.vol_tex_ids, state.light_sweep,
+            per_object, lod_cull, eye, s,
+            warp_lib.screen_basis(screen_to_world, eye) if use_tile
+            else None,
+            bucket_caps=config.lod_bucket_caps, vol_zmax=state.vol_zmax,
+            impl=impl, depth_map=depth_map, sorted_output=use_tile,
+            pack=not use_warp)
+        cube_maps = swept.cube_maps
+        cull_for_composite = cull._replace(mip_level=swept.mips,
+                                           use_cube_map=cull.visible)
+        if use_tile:
+            order, swap = swept.order, swept.swap
+        else:
+            # the warp's footprint classes mirror the sweep's buckets
+            lod_order, lod_buckets = sweep_lib.lod_partition(
+                lod_cull, n, s, config.lod_bucket_caps)
+    else:
+        # every volume at full resolution, all on the cube-map path (the
+        # reference's non-adaptive mode, `CSVolumeCull.hlsl:69`)
+        cull_for_composite = cull._replace(
+            mip_level=torch.zeros_like(cull.mip_level),
+            use_cube_map=cull.visible)
+        cube_maps = sweep_lib.ray_march_view_sweep(
+            state.volumes_sweep, state.vol_tex_ids, state.light_sweep,
+            per_object, cull_for_composite, eye, depth_map, s,
+            num_planes=config.sweep_planes, vol_zmax=state.vol_zmax,
+            impl=impl)
+    if (config.packed_composite and not use_warp and not use_raycast
+            and cube_maps.color.shape[2] == 4):
+        # the gather composite reads f16 pairs (the LOD sweep packs its
+        # own maps for it whatever packed_composite says, as in JAX)
+        cube_maps = cube_maps._replace(
+            color=composite_lib.pack_cube_f16(cube_maps.color))
 
     # --- background: sky ------------------------------------------------
     mark("sky")
@@ -148,11 +242,27 @@ def render_frame(state: SceneState, camera: Camera, config: RenderConfig,
     # --- OIT composite over the background ------------------------------
     mark("composite")
     cw, ch = _composite_size(config, has_mesh)
-    vr, vg, vb, va = tilecast.composite_oit_tile(
-        swept.cube_maps, per_object, cull_for_composite, eye,
-        screen_to_world, cw, ch, num_layers=config.oit_layers,
-        order=swept.order, swap_sorted=swept.swap, depth_map=depth_map,
-        impl=impl)
+    if use_tile:
+        vr, vg, vb, va = tilecast.composite_oit_tile(
+            cube_maps, per_object, cull_for_composite, eye,
+            screen_to_world, cw, ch, num_layers=config.oit_layers,
+            order=order, swap_sorted=swap, depth_map=depth_map, impl=impl)
+    elif use_warp:
+        tile = config.warp_tile
+        if tile is None:
+            tile = 512 if n <= 8 else 384
+        vr, vg, vb, va = warp_lib.composite_oit_warp(
+            cube_maps, per_object, cull_for_composite, eye, screen_to_world,
+            depth_map, cw, ch, num_layers=config.oit_layers, tile=tile,
+            lod_order=lod_order, lod_buckets=lod_buckets)
+    else:
+        vr, vg, vb, va = composite_lib.composite_oit(
+            cube_maps, state.volumes, state.vol_tex_ids,
+            state.light_maps.movedim(1, -1), per_object, cull_for_composite,
+            eye, screen_to_world, depth_map, cw, ch,
+            config.max_ray_samples, num_layers=config.oit_layers,
+            adaptive=config.adaptive_raymarch, use_raycast=use_raycast,
+            has_depth=has_mesh)
 
     mark("tail")
     sc = _blend_background((vr, vg, vb, va), (bg_r, bg_g, bg_b), width,

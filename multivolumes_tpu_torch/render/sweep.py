@@ -1,16 +1,16 @@
-"""Plane-sweep view-space marching: the LOD-bucketed cube-map march.
+"""Plane-sweep view-space marching: the cube-map march.
 
-Counterpart of the main-path parts of `multivolumes_tpu/render/sweep.py`
-(`eye_to_face_frames`, `face_ray_params`, `lod_partition`,
-`ray_march_view_sweep_lod` with sorted_output=True, pack=False and
-swap_basis, and `ray_march_view_sweep_lod_sharded`, the same march split
-over the volume axis of a device mesh). The per-(volume, face) march
-itself is kernel B1 (`ops/sweep.py`); this module does the per-frame
-geometry around it:
-face frames, ray intervals, LOD buckets, the sorted assembly and the
-Catmull-Smith pre-swap of each face for the tile composite. With a scene
-depth map (the opaque mesh), each ray also ends where the scene occludes
-it (`_occlusion_s_max`, the reference's `GetTMax` in the sweep's ray
+Counterpart of `multivolumes_tpu/render/sweep.py` (`eye_to_face_frames`,
+`face_ray_params`, `lod_partition`, `ray_march_view_sweep_lod` with its
+three output contracts, `ray_march_view_sweep`, the un-bucketed march of
+every volume at full resolution, and `ray_march_view_sweep_lod_sharded`,
+the LOD march split over the volume axis of a device mesh). The
+per-(volume, face) march itself is kernel B1 (`ops/sweep.py`); this
+module does the per-frame geometry around it: face frames, ray
+intervals, LOD buckets, the sorted assembly and the Catmull-Smith
+pre-swap of each face for the tile composite. With a scene depth map
+(the opaque mesh), each ray also ends where the scene occludes it
+(`_occlusion_s_max`, the reference's `GetTMax` in the sweep's ray
 parameter, sampled per bucket at a quarter, half or full bucket
 resolution), and the bucket's cube depth, unprojected to view distance
 and swapped like the faces, goes to the composite's CubeCast weights.
@@ -26,7 +26,8 @@ import torch
 from multivolumes_tpu_torch.config import SharedConsts
 from multivolumes_tpu_torch.core import math3d
 from multivolumes_tpu_torch.ops.sweep import sweep_march
-from multivolumes_tpu_torch.render.composite import unproject_z
+from multivolumes_tpu_torch.render.composite import (pack_cube_f16,
+                                                      unproject_z)
 from multivolumes_tpu_torch.render.cull import CullResult
 from multivolumes_tpu_torch.render.perframe import PerObject
 from multivolumes_tpu_torch.render.raymarch import (
@@ -227,11 +228,13 @@ def lod_partition(cull: CullResult, n: int, cube_map_size: int,
 
 
 class SortedSweep(NamedTuple):
-    """The LOD sweep's output in bucket-sorted volume order."""
+    """The LOD sweep's output: map rows in `order` (bucket-sorted, or the
+    identity with sorted_output=False)."""
     cube_maps: CubeMaps     # rows in `order`; faces pre-swapped by `swap`
     mips: torch.Tensor      # (N,) int32 effective mip, ORIGINAL indexing
     order: torch.Tensor     # (N,) row j = volume order[j]
-    swap: torch.Tensor      # (N, 6) bool Catmull-Smith flags, sorted rows
+    swap: torch.Tensor      # (N, 6) bool Catmull-Smith flags, sorted rows;
+                            # None without a swap basis
 
 
 def bucket_mips(cull: CullResult, ids, mip_b: int, max_mip: int):
@@ -277,19 +280,33 @@ def ray_march_view_sweep_lod(
     cull: CullResult,   # use_cube_map = visible for the LOD march
     eye,
     cube_map_size: int,
-    swap_basis,         # (3, 3) warp.screen_basis
+    swap_basis,         # (3, 3) warp.screen_basis, or None
     bucket_caps=(8, 24, 1 << 30),
     vol_zmax=None,
     impl: str | None = None,
     depth_map=None,     # (H, W) scene clip depth (the mesh), or None
+    sorted_output: bool = True,
+    pack: bool = False,
 ) -> SortedSweep:
     """LOD-bucketed sweep (the reference's work-graph cube-map dispatch,
     `LibRayMarch.hlsl:39-134`, as fixed-capacity resolution buckets):
     volumes sorted by mip sweep at S, S/2, S/4 ... in bucket order; each
-    map fills the top-left n_eff^2 corner of its (S, S) face, in the
-    sweep dtype, pre-swapped for the tile composite. With `depth_map`,
-    rays stop at the scene depth and the output carries the cube depth
-    (view distance, swapped like the faces, Z_FAR outside each corner)."""
+    map fills the top-left n_eff^2 corner of its (S, S) face.
+
+    Three output contracts, as the JAX function's:
+    * the tile composite's (`sorted_output`, a `swap_basis`): rows in
+      bucket order, in the sweep dtype, each face pre-swapped; with
+      `depth_map` the cube depth in view distance, swapped like the
+      faces, Z_FAR outside each corner;
+    * the warp composite's (`sorted_output=False`, no swap basis): rows
+      in volume order, unswapped, in the sweep dtype; the cube depth is
+      the sampled scene clip depth, 1 outside each corner;
+    * the gather composite's: the same with `pack`, the colour f16-pair
+      packed from the f32 march (`composite.pack_cube_f16`).
+    With `depth_map`, rays stop at the scene depth."""
+    if swap_basis is not None and (pack or not sorted_output):
+        raise ValueError("swap_basis is the tile composite's contract: "
+                         "sorted, unpacked")
     n = vol_tex_ids.shape[0]
     s = cube_map_size
     dev = volumes_sweep.device
@@ -307,31 +324,41 @@ def ray_march_view_sweep_lod(
         bucket_ids.append(ids)
         n_effs.append((s >> eff_mip).float())
 
-    # one shared function with the tile prep (warp.catmull_swap_flags),
-    # over every sorted row at once: the prep recomputes exactly this
-    n_eff_sorted = torch.cat(n_effs)
-    po_sorted = per_object.take(order)
-    swap = catmull_swap_flags(
-        swap_basis, po_sorted.world_i, po_sorted.world_view_proj,
-        math3d.transform_point3(eye, po_sorted.world_i), n_eff_sorted)
+    swap = None
+    if swap_basis is not None:
+        # one shared function with the tile prep (warp.catmull_swap_flags),
+        # over every sorted row at once: the prep recomputes exactly this
+        n_eff_sorted = torch.cat(n_effs)
+        po_sorted = per_object.take(order)
+        swap = catmull_swap_flags(
+            swap_basis, po_sorted.world_i, po_sorted.world_view_proj,
+            math3d.transform_point3(eye, po_sorted.world_i), n_eff_sorted)
 
-    color = torch.zeros((n, 6, 4, s, s), dtype=volumes_sweep.dtype,
-                        device=dev)
+    if pack:
+        color = torch.zeros((n, 6, 2, s, s), dtype=torch.float32,
+                            device=dev)
+    else:
+        color = torch.zeros((n, 6, 4, s, s), dtype=volumes_sweep.dtype,
+                            device=dev)
     cube_depth = occl_depth = None
     if depth_map is not None:
-        cube_depth = torch.full((n, 6, s, s), SharedConsts.Z_FAR,
+        cube_depth = torch.full((n, 6, s, s), SharedConsts.Z_FAR
+                                if swap is not None else 1.0,
                                 dtype=torch.float32, device=dev)
         occl_depth = _pool2_max(depth_map)
     for (b0, count, size_b, _mip_b), ids, n_eff_v in zip(
             buckets, bucket_ids, n_effs):
-        sw = swap[b0:b0 + count, :, None, None]
+        rows = slice(b0, b0 + count) if sorted_output else ids
+        sw = None if swap is None else swap[b0:b0 + count, :, None, None]
         s_max_b = None
         if depth_map is not None:
             s_max_b, depth_b = bucket_occlusion(
                 per_object, eye_local, occl_depth, ids, size_b, n_eff_v)
-            depth_b = unproject_z(depth_b.float())
-            cube_depth[b0:b0 + count, :, :size_b, :size_b] = torch.where(
-                sw, depth_b.transpose(-1, -2), depth_b)
+            if sw is not None:
+                depth_b = unproject_z(depth_b.float())
+                depth_b = torch.where(sw, depth_b.transpose(-1, -2),
+                                      depth_b)
+            cube_depth[rows, :, :size_b, :size_b] = depth_b
         eye_f_b, params, smp, run = bucket_march_args(
             cull, eye_faces, ids, size_b, n_eff_v, s_max=s_max_b)
         scatter = sweep_march(
@@ -340,11 +367,64 @@ def ray_march_view_sweep_lod(
             vol_zmax=vol_zmax, impl=impl)       # (count, 6, 4, Sb, Sb)
         scatter[:, :, :3] *= 1.0 / (2.0 * math.pi)
         scatter = scatter * run[:, :, None, None, None]
-        out_b = scatter.to(volumes_sweep.dtype)
-        out_b = torch.where(sw[:, :, None], out_b.transpose(-1, -2), out_b)
-        color[b0:b0 + count, :, :, :size_b, :size_b] = out_b
+        if pack:
+            out_b = pack_cube_f16(scatter)
+        else:
+            out_b = scatter.to(volumes_sweep.dtype)
+        if sw is not None:
+            out_b = torch.where(sw[:, :, None], out_b.transpose(-1, -2),
+                                out_b)
+        color[rows, :, :, :size_b, :size_b] = out_b
+    if not sorted_output:
+        order = torch.arange(n, device=dev)
     return SortedSweep(CubeMaps(color=color, depth=cube_depth), mips, order,
                        swap)
+
+
+def ray_march_view_sweep(
+    volumes_sweep,      # (N_src, D, H, W, 4) sweep dtype
+    vol_tex_ids,        # (N,)
+    light_sweep,        # (N, L, L, L, 4) sweep dtype
+    per_object: PerObject,
+    cull: CullResult,
+    eye,
+    depth_map,          # (H, W) scene clip depth, or None
+    cube_map_size: int,
+    num_planes: int | None = None,
+    vol_zmax=None,
+    impl: str | None = None,
+) -> CubeMaps:
+    """The un-bucketed sweep (`lod_bucket_caps=None` or
+    `adaptive_raymarch=False`): every (volume, face) cube map at the full
+    resolution S in one launch of kernel B1, `num_planes` planes
+    (None -> S). The output contract of `raymarch.ray_march_view` at mip
+    0: rows in volume order, the f32 march, and the sampled scene clip
+    depth (ones without a depth map)."""
+    n = vol_tex_ids.shape[0]
+    s = cube_map_size
+    dev = volumes_sweep.device
+    eye_local = math3d.transform_point3(eye, per_object.world_i)
+    eye_faces = eye_to_face_frames(eye_local)
+    u = ((torch.arange(s, dtype=torch.float32, device=dev) + 0.5) / s
+         * 2.0 - 1.0).expand(n * 6, s)
+    s_max = None
+    if depth_map is not None:
+        s_max, cube_depth = _occlusion_s_max(
+            per_object, eye_local, depth_map, s,
+            torch.full((n,), float(s), device=dev))
+        s_max = s_max.reshape(n * 6, s, s)
+    else:
+        cube_depth = torch.ones((n, 6, s, s), dtype=torch.float32,
+                                device=dev)
+    params = face_ray_params(eye_faces.reshape(n * 6, 3), u, -u, s_max)
+    params = SweepParams(*(x.reshape(n, 6, s, s) for x in params))
+    run = cull.face_mask & cull.visible[:, None] & cull.use_cube_map[:, None]
+    scatter = sweep_march(volumes_sweep, light_sweep, vol_tex_ids, eye_faces,
+                          params, cull.smp_count, run, num_planes or s, s,
+                          vol_zmax=vol_zmax, impl=impl)
+    scatter[:, :, :3] *= 1.0 / (2.0 * math.pi)
+    return CubeMaps(color=scatter * run[:, :, None, None, None],
+                    depth=cube_depth)
 
 
 def ray_march_view_sweep_lod_sharded(

@@ -129,13 +129,12 @@ def mesh_world_matrix(config: RenderConfig, device=None) -> torch.Tensor:
 
 
 def create_scene(config: RenderConfig, device="cuda") -> SceneState:
-    """Build the initial scene (`MultiVolumes::LoadAssets`), with one full
-    light refresh so the per-frame cohort amortization starts coherent.
-    The scene lives on the card unless `device` says otherwise."""
-    if config.light_mode != "sweep" or config.point_light:
-        raise NotImplementedError(
-            "only the sweep light maps are ported (light_mode='sweep', no "
-            "point light); the reference light march is still to port")
+    """Build the initial scene (`MultiVolumes::LoadAssets`). With the
+    light sweep, one full light refresh so the per-frame cohort
+    amortization starts coherent; with `light_mode="reference"`, light
+    maps of ones that the reference light march refreshes one volume a
+    frame (`multivolumes_tpu/scene/state.py:212-238`). The scene lives on
+    the card unless `device` says otherwise."""
     device = torch.device(device)
     n = config.num_volumes
     sdt = sweep_dtype(config)
@@ -155,12 +154,17 @@ def create_scene(config: RenderConfig, device="cuda") -> SceneState:
     light_pos = torch.tensor([75.0, 75.0, -75.0, 1.0], **f32)
     light_color = torch.tensor([1.0, 0.7, 0.3, 3.0 * np.pi], **f32)
     ambient = torch.tensor([0.4, 0.6, 1.0, 2.0 * np.pi], **f32)
-    po0 = build_per_object(worlds, torch.eye(4, **f32))
-    maps, light_sout = lightsweep.ray_march_light_sweep_update(
-        rho_light, ao_static, grad_dir, vol_tex_ids, po0,
-        light_pos, light_color, ambient, sh_coeffs,
-        config.max_light_samples, lightsweep.light_axis(light_pos),
-        has_light_probe=config.has_light_probe)
+    if config.light_mode == "sweep":
+        po0 = build_per_object(worlds, torch.eye(4, **f32))
+        maps, light_sout = lightsweep.ray_march_light_sweep_update(
+            rho_light, ao_static, grad_dir, vol_tex_ids, po0,
+            light_pos, light_color, ambient, sh_coeffs,
+            config.max_light_samples, lightsweep.light_axis(light_pos),
+            has_light_probe=config.has_light_probe)
+    else:
+        lgs = config.light_grid_size
+        maps = torch.ones((n, 3, lgs, lgs, lgs), **f32)
+        light_sout = torch.ones((n, lgs, lgs), **f32)
 
     return SceneState(
         frame_idx=0,

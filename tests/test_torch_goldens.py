@@ -3,23 +3,24 @@
 `create_scene`, then `render_case`'s loop (orbit camera at f/60, TAA on),
 at the limits of tests/test_goldens.py:37-41 (mean < 2e-3, p99.9 < 3e-2).
 
-`reference_4vol` needs the reference march twins (ROADMAP.md);
-`fast_4vol_mesh` needs `Assets/bunny.obj`, which is not in the repository
-(the JAX golden test skips without it too)."""
+`reference_4vol` renders in the reference semantics (the gather march,
+the gather light march and the gather composite). `fast_4vol_mesh` needs
+`Assets/bunny.obj`, which is not in the repository (the JAX golden test
+skips without it too)."""
 
 import os
 
 import numpy as np
 import pytest
-from torch_parity import port_config
+from torch_parity import one_torch_thread, port_config  # noqa: F401
 
 from multivolumes_tpu_torch.core import camera as cam_lib
 from multivolumes_tpu_torch.render import frame as frame_lib
 from multivolumes_tpu_torch.scene import state as state_lib
 from tools.make_goldens import GOLDEN_DIR, golden_cases
 
-PORTED = ("fast_4vol", "cfgmat_nonsquare", "cfgmat_odd_viewport",
-          "cfgmat_half_res")
+PORTED = ("fast_4vol", "reference_4vol", "cfgmat_nonsquare",
+          "cfgmat_odd_viewport", "cfgmat_half_res")
 CASES = {name: (port_config(cfg), frames)
          for name, cfg, frames, _mesh in golden_cases() if name in PORTED}
 

@@ -232,3 +232,16 @@ def pallas_raster_bin_eval(tile_of_chunk, x0, y0, coef, n_tiles: int):
     return np.asarray(evalk(jnp.asarray(tile_of_chunk), jnp.asarray(first),
                             jnp.asarray(x0), jnp.asarray(y0),
                             jnp.asarray(coef)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module's tests. The reference marches
+    are loops of small tensor ops; under a parallel run every worker's
+    OpenMP threads would spin against the others' (on an 8-core CPU, six
+    workers of eight threads each ran the fidelity test 45 times slower
+    than six workers of one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
