@@ -69,12 +69,29 @@ Phases (any failure exits non-zero, and no result line is printed):
      `tile_row0` band composite against their plain versions on a frame's
      operands (and the bands against B5 on the whole image, equal), their
      launches (2 band resolves, 2 band composites and at least 4 sweeps
-     per frame), the movements the frame logged, then
-     `sharding.placement_check(8)` and `sharding.dryrun(8)` on the card;
+     per frame), the movements the frame logged; then the demo with the
+     test mesh (phase 5's scene) through the sharded step on the same two
+     meshes, 3 orbit frames on the far preset and a close-up on the near
+     one, held against the unsharded mesh frames at the same limits, with
+     B1, B2' in row bands, B3', B4 and B5' launched, per-frame host
+     times, peak memory, a profiled window and the movements of the mesh
+     pass (depth, triangle ids, the shaded window); on 2 rows x 4, each B1
+     launch of the last orbit frame (per volume shard and LOD bucket,
+     rays bounded by the scene depth) against its plain version (the
+     `sweep@shard-S<size>-d<shard>` rows: beyond the buckets' limit only
+     on rays proven to part by one sample, `flip_tol`), and the orbit
+     frames again with B1's plain version on both sides (where the
+     largest pixel difference from the unsharded frame comes from); B2'
+     band on a band of the last frame whose depth weights change pixels
+     against its plain version (the `composite@depth-band` row) and the
+     two bands against the unbanded B2' launch, bit for bit; then
+     `sharding.placement_check(8)` and
+     `sharding.dryrun(8)` on the card;
   9. the binned-raster eval kernel (B6) against its plain version at the
      microbench's default size (exact equality), then the microbench
      itself, `tools.raster_bin_microbench.main`, whose table is printed;
- 10. the reference phase (after the mesh demo; its wall time printed):
+ 10. the reference phase (after the sharded phase, with the demo scenes
+     freed; its wall time printed):
      the demo with `lod_bucket_caps=None` and the warp composite, its one
      B1 launch (64 volumes at S=128, `sweep_planes` planes) against the
      plain version (the `sweep@unbucketed` row; outliers counted: a share
@@ -133,6 +150,8 @@ KERNELS = {
     "taa": (_CSRC + "taa.cu", _PALLAS + "taa_kernel.py:226"),
     "composite_band": (_CSRC + "composite.cu",
                        _PALLAS + "composite_kernel.py:691"),
+    "composite_depth_band": (_CSRC + "composite.cu",
+                             _PALLAS + "composite_kernel.py:691"),
     "taa_band": (_CSRC + "taa.cu", _PALLAS + "taa_kernel.py:247"),
     "raster_bin_eval": (_CSRC + "raster_bin.cu",
                         "tools/raster_bin_microbench.py:172"),
@@ -146,23 +165,30 @@ ROW_KERNEL = {"sweep@unbucketed": ("sweep", "unbucketed"),
               "composite@depth": ("composite_depth", "mesh"),
               "light_self_scan@sm": ("light_self_scan_sm", "mesh"),
               "composite@band": ("composite_band", "sharded"),
+              "composite@depth-band": ("composite_depth_band",
+                                       "sharded_mesh"),
+              "sweep@shard": ("sweep", "sharded_mesh"),
               "taa_band": ("taa_band", "sharded"),
               "raster_bin_eval": ("raster_bin_eval", "raster_bin")}
 # the kernels of the un-bucketed frame with the warp composite, and of the
 # frame in full reference semantics (the gather passes have none but B5)
 UNBUCKETED = ("sweep", "light_self_scan", "light_advect_mul", "taa")
 REFERENCE = ("taa",)
-# the kernels of the sharded frame step on a mesh with a rows axis
+# the kernels of the sharded frame step on a mesh with a rows axis,
+# without and with the opaque mesh
 SHARDED = ("sweep", "composite_band", "light_self_scan", "light_advect_mul",
            "taa_band")
+SHARDED_MESH = ("sweep", "composite_depth_band", "light_self_scan_sm",
+                "light_advect_mul", "taa_band")
 
 
 def row_kernel(name):
     """Summary row name -> (launch-count key, path): the part before "-C<n>"
-    for the shadow-map rows, or before "@"."""
+    for the shadow-map rows, before the first "-" for the per-shard rows
+    ("sweep@shard-S<size>-d<shard>"), or before "@"."""
     base = name.split("@")[0]
-    return ROW_KERNEL.get(name.split("-C")[0],
-                          ROW_KERNEL.get(base, (base, "plain")))
+    return ROW_KERNEL.get(name.split("-C")[0], ROW_KERNEL.get(
+        name.split("-")[0], ROW_KERNEL.get(base, (base, "plain"))))
 
 # the kernels one composite call launches (the depth variant's vote first)
 COMPOSITE_KERNELS = ("tile_composite_kernel", "mesh_tile_kernel")
@@ -201,14 +227,16 @@ def check(cond: bool, what: str) -> None:
 @contextlib.contextmanager
 def capture(targets):
     """Record the first call of each (module, function name) in
-    `targets` while the block runs, under the name, and every call in
-    order under the name + "*"."""
+    `targets` while the block runs, under the name, every call in order
+    under the name + "*", and the names of all calls in the order they
+    start (a call made inside another comes after it) under "#"."""
     calls, saved = {}, []
     for mod, name in targets:
         orig = getattr(mod, name)
         saved.append((mod, name, orig))
 
         def wrapper(*a, _orig=orig, _name=name, **k):
+            calls.setdefault("#", []).append(_name)
             out = _orig(*a, **k)
             calls.setdefault(_name, (a, k))
             calls.setdefault(_name + "*", []).append((a, k))
@@ -590,6 +618,12 @@ def main() -> int:
     results += mesh_results
     launches["mesh"] = phase_demo(mesh_engine, cfg, dev, WITH_MESH,
                                   frames=4, closeup=True)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    (sharded_results, launches["sharded"],
+     launches["sharded_mesh"]) = phase_sharded(cfg, dev, mesh_engine)
+    log(f"[sharded] the sharded phase took {time.time() - t0:.1f} s")
+    # freed before the reference phase, whose peak memory it would inflate
     del mesh_engine
     torch.cuda.empty_cache()
     t0 = time.time()
@@ -597,8 +631,6 @@ def main() -> int:
     results += ref_results
     phase_golden(dev)
     log(f"[reference] the reference phase took {time.time() - t0:.1f} s")
-    torch.cuda.empty_cache()
-    sharded_results, launches["sharded"] = phase_sharded(cfg, dev)
     torch.cuda.empty_cache()
     bin_results, launches["raster_bin"] = phase_raster_bin(dev)
     results += sharded_results + bin_results
@@ -1160,12 +1192,13 @@ def phase_demo(engine, cfg, dev, kernels, frames: int = 8,
     return launches
 
 
-def profile_frames(engine, cams, eyes, what, frames: int = 2):
+def profile_frames(engine, cams, eyes, what, frames: int = 2, mesh=None):
     """Two more frames under `torch.profiler`: the device's busy time and
     kernels per frame, and for each pass its host time and the device time
     of the kernels launched inside it (the profiler ties each kernel to
     the host op that launched it), and the kernels that take the most
-    device time."""
+    device time. With a device `mesh`, `engine.state` is a sharded state
+    and the frames are the sharded step's."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -1190,7 +1223,7 @@ def profile_frames(engine, cams, eyes, what, frames: int = 2):
             if engine.has_mesh:
                 engine.select_raster_preset(eye)
             out = frame_lib.render_frame(engine.state, cam, engine.config,
-                                         timer=mark)
+                                         timer=mark, mesh=mesh)
             engine.state = out.state
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / frames
@@ -1430,11 +1463,14 @@ def phase_small(small, dev, frames: int = 3, mesh_path=None):
               "the mesh is not in the small frames")
 
 
-def phase_sharded(cfg, dev, frames: int = 3):
+def phase_sharded(cfg, dev, mesh_engine, frames: int = 3):
     """The sharded frame step at the demo scale on logical shards of the
     card (2 rows x 4 volume shards), and on the machine's cards when it
-    has several; returns (the summary rows of B5' and the band composite,
-    the launch counts of the sharded frames)."""
+    has several; then, on `mesh_engine` (the demo scene with the test
+    mesh), the same with the opaque mesh (`sharded_mesh_frames`). Returns
+    (the summary rows of B5', the band composite and its depth variant,
+    the launch counts of the sharded frames, those of the sharded frames
+    with the mesh)."""
     import torch
 
     from multivolumes_tpu_torch import ops
@@ -1543,6 +1579,10 @@ def phase_sharded(cfg, dev, frames: int = 3):
         del calls
     del engine, state, images, single
 
+    mesh_results, mesh_launches = sharded_mesh_frames(
+        mesh_engine, dev, [m for m in meshes if "rows" in m[1].axis_names],
+        frames)
+    results += mesh_results
     for shard_light in (False, True):
         r = sharding.placement_check(8, shard_light=shard_light, device=dev)
         log(f"[sharded] placement_check(8, shard_light={shard_light}): cube "
@@ -1551,6 +1591,306 @@ def phase_sharded(cfg, dev, frames: int = 3):
     sharding.dryrun(8, device=dev)
     log("[sharded] dryrun(8) on the card: ok")
     check(launches is not None, "no mesh with a rows axis was driven")
+    return results, launches, mesh_launches
+
+
+def flip_tol(args, kwargs, what, max_rays: int = 16):
+    """B1 against its plain version at the buckets' atol 2e-3 + rtol 2e-2
+    on every element except those of rays where the two part by one
+    sample that one side composites and the other skips, each proven
+    (`tools.sweep_outliers.one_sample_flip`): a density or interval test
+    whose bf16-rounded operands land on either side. At most `max_rays`
+    such rays a launch (the proof bisects the planes, a few kernel and
+    plain marches a ray); where there are some, the launch with f32
+    stacks is logged too."""
+    def tol(g, w):
+        from multivolumes_tpu_torch.render import sweep as sweep_mod
+        from multivolumes_tpu_torch.tools.sweep_outliers import (
+            one_sample_flip)
+
+        err = (g - w).abs()
+        bad = err > 2e-3 + 2e-2 * w.abs()
+        rays = sorted({tuple(x[:2] + x[3:]) for x in bad.nonzero().tolist()})
+        check(len(rays) <= max_rays, f"{what}: {len(rays)} rays beyond atol "
+              f"2e-3 rtol 2e-2 (at most {max_rays} are examined)")
+        if not rays:
+            return float(err.max())
+        t0 = time.perf_counter()
+        for ray in rays:
+            m, side = one_sample_flip(args, kwargs, ray)
+            v, f, i, j = ray
+            log(f"  {what}: ray {ray} (largest element "
+                f"{float(err[v, f, :, i, j].max()):.3e}) parts at plane {m}"
+                + (f", where only the {side} composites a sample" if side
+                   else ""))
+            check(side is not None, f"{what}: on ray {ray} B1 and its plain "
+                  f"version part at plane {m} otherwise than by one sample")
+        a32 = (args[0].float(), args[1].float()) + tuple(args[2:])
+        p32 = sweep_mod.sweep_march(*a32, **kwargs, impl="plain")
+        bad32 = (sweep_mod.sweep_march(*a32, **kwargs, impl="kernel")
+                 - p32).abs() > 2e-3 + 2e-2 * p32.abs()
+        log(f"  {what}: {int(bad.sum())} of {bad.numel()} elements beyond "
+            f"atol 2e-3 rtol 2e-2, on {len(rays)} rays, each a one-sample "
+            f"flip (proved in {time.perf_counter() - t0:.1f} s); with f32 "
+            f"stacks {int(bad32.sum())} beyond")
+        return float(err.max())
+    return tol
+
+
+def shard_sweep_rows(what, calls, n_vol_shards, sweep_mod, sweep_ops):
+    """Each B1 launch in `calls` (one sharded frame's sweeps, captured in
+    order) against its plain version (`flip_tol`): the rows
+    `sweep@shard-S<size>-d<shard>`."""
+    import torch
+
+    lods = calls["ray_march_view_sweep_lod*"]
+    check(len(lods) == n_vol_shards
+          and all(k.get("depth_map") is not None for _a, k in lods),
+          f"{what}: {len(lods)} shard sweeps, depth maps "
+          f"{[k.get('depth_map') is not None for _a, k in lods]}")
+    rows, shard, marches = [], -1, iter(calls["sweep_march*"])
+    for name in calls["#"]:
+        if name == "ray_march_view_sweep_lod":
+            shard += 1
+            continue
+        a, k = next(marches)
+        k = {n: x for n, x in k.items() if n != "impl"}
+        info = sweep_ops.sweep_launch_info(
+            a[8], a[7], a[0].shape[1], a[1].shape[1],
+            a[0].dtype == torch.bfloat16)
+        log(f"[kernel] {what}: shard {shard} bucket S={a[8]}: "
+            f"{a[2].shape[0]} volumes; {info}")
+        name = f"sweep@shard-S{a[8]}-d{shard}"
+        rows.append(compare_kernel(
+            name, sweep_mod.sweep_march, a, k, flip_tol(a, k, name),
+            bound_sweep, reps=(10, 1), device_kernel="sweep_kernel"))
+    check(len(rows) >= n_vol_shards
+          and {int(r["name"].rsplit("-d", 1)[1]) for r in rows}
+          == set(range(n_vol_shards)),
+          f"{what}: B1 rows {[r['name'] for r in rows]}")
+    return rows
+
+
+def sharded_mesh_frames(engine, dev, meshes, frames: int):
+    """The demo with the test mesh through the sharded step on each device
+    mesh of `meshes` (all with a rows axis): `frames` orbit frames on the
+    far preset the engine's pick gives them, then a close-up on the near
+    preset, each held against the unsharded mesh frame from the same
+    state (2 rows x 1 volume shard at atol 2e-5; more volume shards at the
+    limits of the no-mesh rows), with B1, B2' in bands, B3', B4 and B5'
+    launched; their host times, peak memory, device busy time (profiled)
+    and the movements of the mesh pass. On more than one volume shard:
+    each B1 launch of the last orbit frame (each shard's buckets, its rays
+    bounded by the scene depth) against its plain version (the
+    `sweep@shard-S<size>-d<shard>` rows), and the orbit frames again with
+    B1's plain version on both sides, which tells whether the largest
+    pixel difference from the unsharded frame comes from B1 or from the
+    per-shard LOD buckets; B2' band held against its plain version on a
+    band whose depth weights change pixels (the `composite@depth-band`
+    row) and the two bands against the unbanded B2' launch, bit for bit.
+    Returns (the summary rows, the launch counts of the orbit frames on
+    the last mesh with more than one volume shard)."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from multivolumes_tpu_torch.core import camera as cam_lib
+    from multivolumes_tpu_torch.ops import lightsweep as light_ops
+    from multivolumes_tpu_torch.ops import sweep as sweep_ops
+    from multivolumes_tpu_torch.parallel import sharding
+    from multivolumes_tpu_torch.render import frame as frame_lib
+    from multivolumes_tpu_torch.render import sweep as sweep_mod
+    from multivolumes_tpu_torch.render import tilecast as tile_mod
+
+    aspect = engine.config.aspect_ratio
+    times_s = [0.25 * i for i in range(frames)]
+    cams = [cam_lib.orbit_camera(tm, aspect, device=dev) for tm in times_s]
+    eyes = [(np.sin(tm * 0.5) * 60.0, 6.0, np.cos(tm * 0.5) * 60.0)
+            for tm in times_s]
+    presets = {engine.select_raster_preset(eye) for eye in eyes}
+    check(presets == {"far"}, f"the orbit picked the presets {presets}")
+    far_cfg = engine.config
+    close_eye = (0.0, 6.0, 30.0)
+    check(engine.select_raster_preset(close_eye) == "near",
+          "the close-up did not pick the near preset")
+    near_cfg = engine.config
+    close_cam = cam_lib.make_camera(list(close_eye), [0.0, 0.0, 0.0],
+                                    aspect, device=dev)
+    start = clone_state(engine.state)
+    single, state = [], clone_state(start)
+    for cam in cams:
+        out = frame_lib.render_frame(state, cam, far_cfg)
+        state = out.state
+        single.append(out.image)
+    single.append(frame_lib.render_frame(state, close_cam, near_cfg).image)
+    del state
+    torch.cuda.synchronize()
+
+    def pixel_err(img, want):
+        err = (img.float() - want.to(img.device).float()).abs()
+        return err.amax(0) if err.shape[0] == 3 else err.amax(-1)
+
+    results, launches = [], None
+    for what, mesh in meshes:
+        what = f"sharded mesh step ({what})"
+        step = sharding.make_sharded_step(far_cfg, mesh)
+        state = sharding.shard_state(clone_state(start), mesh)
+        n_vol_shards = mesh.n_volumes_axis
+        images, times, last = [], [], {}
+
+        def run():
+            nonlocal state
+            for f, cam in enumerate(cams):
+                mesh.log.clear()
+                t0 = time.perf_counter()
+                # the last frame's sweeps, in order, with the B1 launches
+                with (capture([(sweep_mod, "ray_march_view_sweep_lod"),
+                               (sweep_mod, "sweep_march")])
+                      if f == frames - 1 else contextlib.nullcontext({})) \
+                        as sweeps:
+                    img, state = step(state, cam)
+                last.update(sweeps)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                images.append(img)
+            return images
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with capture([(tile_mod, "tile_composite"),
+                      (light_ops, "light_self_scan")]) as calls:
+            _, counted = drive(what, run, frames, SHARDED_MESH)
+        peak = torch.cuda.max_memory_allocated() - base
+        steady = sorted(times[1:])
+        log(f"[sharded] {what} ms/frame (host clock, sync per frame): "
+            + " ".join(f"{t:.2f}" for t in times) + f"; median "
+            f"{steady[len(steady) // 2]:.3f} over frames 2-{frames}; peak "
+            f"memory {peak / 2**30:.3f} GiB above the "
+            f"{base / 2**30:.3f} GiB held before the run")
+        moved = [c for c in mesh.log if c[0].startswith("mesh_")]
+        log(f"[sharded] {what} the mesh pass moved (name elements "
+            f"(bytes)): " + " ".join(f"{n} {e} ({b} B)" for n, e, b in moved)
+            + f"; {sum(b for _n, _e, b in moved)} B in all; every movement "
+            f"of the frame: {sum(b for _n, _e, b in mesh.log)} B")
+        check([c[0] for c in moved][:2] == ["mesh_depth", "mesh_tri_id"],
+              f"the far frame's mesh movements {moved}")
+        check(counted["sweep"] >= n_vol_shards * frames,
+              f"{counted['sweep']} sweeps for {n_vol_shards} volume shards")
+        check(counted["composite_depth_band"] == mesh.rows * frames
+              and counted["taa_band"] == mesh.rows * frames,
+              f"band launches {counted}")
+        check(counted["composite"] + counted["composite_depth"]
+              + counted["composite_band"] + counted["taa"] == 0,
+              f"an unbanded or mesh-less screen kernel ran: {counted}")
+        (a, k) = calls["light_self_scan"]
+        check(k.get("sm_vol") is not None, "no shadow map in the refresh")
+        for f, (img, want) in enumerate(zip(images, single)):
+            check(img.device == mesh.root, f"image on {img.device}")
+            check(bool(torch.isfinite(img).all()), f"non-finite {what}")
+            if n_vol_shards == 1:
+                err = allclose_tol(2e-5, 0.0, f"{what}, frame {f} vs "
+                                   f"unsharded")(img, want)
+                log(f"  {what}, frame {f} vs unsharded: max {err:.3e}")
+            else:
+                image_tol(2e-3, 99.9, 1e-1, f"{what}, frame {f} vs "
+                          f"unsharded")(img, want.to(img.device))
+        if n_vol_shards > 1:
+            results += shard_sweep_rows(what, last, n_vol_shards, sweep_mod,
+                                        sweep_ops)
+            # the orbit frames again with B1's plain version on both sides:
+            # a pixel that differs as much there comes from the per-shard
+            # LOD buckets, not from the kernel
+            kernel_march = sweep_mod.sweep_march
+            sweep_mod.sweep_march = lambda *a, **k: kernel_march(
+                *a, **dict(k, impl="plain"))
+            try:
+                p_state = sharding.shard_state(clone_state(start), mesh)
+                s_state = clone_state(start)
+                for f, cam in enumerate(cams):
+                    img_p, p_state = step(p_state, cam)
+                    out = frame_lib.render_frame(s_state, cam, far_cfg)
+                    s_state = out.state
+                    err_k = pixel_err(images[f], single[f])
+                    at = divmod(int(err_k.argmax()), err_k.shape[1])
+                    err_p = pixel_err(img_p, out.image)
+                    log(f"[sharded] {what}, frame {f}, the largest pixel "
+                        f"difference from the unsharded frame: B1 kernel "
+                        f"{float(err_k.max()):.3e} at (y, x) {at}; B1 plain "
+                        f"on both sides {float(err_p[at]):.3e} there, "
+                        f"{float(err_p.max()):.3e} at most; at that pixel "
+                        f"kernel vs plain: sharded "
+                        f"{float(pixel_err(images[f], img_p)[at]):.3e}, "
+                        f"unsharded "
+                        f"{float(pixel_err(single[f], out.image)[at]):.3e}")
+            finally:
+                sweep_mod.sweep_march = kernel_march
+            del p_state, s_state, img_p, out
+        # the close-up on the near preset: the shade per raster band and
+        # the full-screen reprojection
+        mesh.log.clear()
+        img, state = sharding.make_sharded_step(near_cfg, mesh)(state,
+                                                                close_cam)
+        torch.cuda.synchronize()
+        log(f"[sharded] {what} close-up (near preset): the mesh pass moved "
+            + " ".join(f"{n} {e} ({b} B)" for n, e, b in mesh.log
+                       if n.startswith("mesh_")))
+        if n_vol_shards == 1:
+            allclose_tol(2e-5, 0.0, f"{what}, close-up vs unsharded")(
+                img, single[-1])
+        else:
+            image_tol(2e-3, 99.9, 1e-1, f"{what}, close-up vs unsharded")(
+                img, single[-1].to(img.device))
+        holder = types.SimpleNamespace(has_mesh=False, state=state,
+                                       config=far_cfg)
+        profile_frames(holder, cams, eyes, what, mesh=mesh)
+        state = holder.state
+        if n_vol_shards == 1:
+            del calls
+            continue
+        launches = counted
+        # B2' band on the last orbit frame's lower band of tile rows
+        (a1, k1) = calls["tile_composite*"][-1]
+        (a0, k0) = calls["tile_composite*"][-2]
+        k0, k1 = ({n: x for n, x in k.items() if n != "impl"}
+                  for k in (k0, k1))
+        check(k1.get("depth_sel") is not None and k1["tile_row0"] > 0
+              and k0["tile_row0"] == 0, "the last frame's band calls")
+        # the depth weights must change pixels of the band compared, or
+        # the comparison could not tell a kernel that skips them: the
+        # lower band, else the upper one
+        n_seam = []
+        for a, k in ((a0, k0), (a1, k1)):
+            seam = (tile_mod.tile_composite(*a, **k, impl="kernel")
+                    - tile_mod.tile_composite(*a, **dict(k, depth_sel=None),
+                                              impl="kernel")).abs().amax(0)
+            n_seam.append(int((seam > 1e-3).sum()))
+            log(f"[sharded] {what}: in the band from tile row "
+                f"{k['tile_row0']} the depth weights move {n_seam[-1]} "
+                f"pixels by more than 1e-3 (max {float(seam.max()):.3e})")
+        check(max(n_seam) > 0, "the depth weights change no pixel of "
+              "either band of the sharded mesh frame")
+        (ab, kb) = (a1, k1) if n_seam[1] > 0 else (a0, k0)
+        results.append(compare_kernel(
+            "composite@depth-band", tile_mod.tile_composite, ab, kb,
+            allclose_tol(1e-4, 1e-4, "composite@depth-band"),
+            bound_composite, reps=(10, 1), device_kernel=COMPOSITE_KERNELS))
+        # the two bands assemble the unbanded B2' launch bit for bit
+        banded = torch.cat([tile_mod.tile_composite(*a, **k, impl="kernel")
+                            for a, k in ((a0, k0), (a1, k1))], 1)
+        whole = tile_mod.tile_composite(
+            a0[0], *(torch.cat([x, y]) for x, y in zip(a0[1:4], a1[1:4])),
+            *a0[4:], depth_sel=k0["depth_sel"], impl="kernel")
+        check(tuple(banded.shape) == tuple(whole.shape)
+              and torch.equal(banded, whole),
+              "the B2' bands differ from the unbanded B2' launch")
+        log(f"[sharded] {what}: the two B2' bands equal the unbanded B2' "
+            f"launch ({tuple(whole.shape)}) bit for bit")
+        del calls
+    del state, images, single, start
+    check(launches is not None,
+          "no mesh with a rows axis and volume shards was driven")
     return results, launches
 
 

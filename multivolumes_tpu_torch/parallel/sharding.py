@@ -11,7 +11,10 @@ JAX package's:
   sharded on that axis; the marched cube maps are all-gathered into the
   screen composite, which needs every volume's small map at every pixel;
 - with a rows axis the composite and the TAA resolve run on bands of
-  pixel rows, and the TAA history is stored in those bands.
+  pixel rows, and the TAA history is stored in those bands;
+- the opaque mesh's tables (vertices, indices, world, previous-frame
+  matrix, cached shadow map) are replicated; with a rows axis its raster
+  and shade run in row bands (`render/mesh.py:render_mesh`).
 
 The JAX version states shardings on one jitted step and lets GSPMD place
 the collectives. Here one process drives every device and the movements

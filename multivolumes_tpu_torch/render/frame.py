@@ -33,7 +33,8 @@ of `state` are updated in place.
 With a device mesh (`render_frame(..., mesh=mesh)`, the state a
 `parallel.sharding.ShardedState`) the same passes run as the sharded
 frame step: the sweep split over the mesh's volume axis, the composite
-and the TAA resolve over its row axis where it has one, everything else
+and the TAA resolve over its row axis where it has one, the opaque
+mesh's raster and shade over its row axis too, everything else
 replicated, once per physical device (`_render_frame_sharded`).
 """
 
@@ -75,7 +76,8 @@ def check_supported(config: RenderConfig, sharded: bool = False) -> None:
     """Raise for settings the JAX package does not have either, and, with
     `sharded`, for those the sharded frame step does not run yet: the
     reference modes, point lights, the warp and gather composites and the
-    un-bucketed sweep (a queue entry in ROADMAP.md)."""
+    un-bucketed sweep (a queue entry in ROADMAP.md). The opaque mesh runs
+    in both, on any device mesh."""
     bad = []
     if config.march_mode not in ("sweep", "reference"):
         bad.append(f"march_mode={config.march_mode!r}")
@@ -374,6 +376,15 @@ def _render_frame_sharded(sharded, camera: Camera, config: RenderConfig,
       replicated light stack once per physical device (logical shards of
       one device alias it), and under `shard_light_stacks` only the owner
       shard of each cohort volume writes its local row;
+    * with an opaque mesh its pass runs before the light: on a rows axis
+      the raster and the shade in row bands, the depth map all-gathered
+      onto every device and the shaded fields onto the root
+      (`mesh.render_mesh_sharded`), else replicated; its cached
+      shadow map shades every refresh (B3's shadow-map variant), its
+      depth bounds every shard's rays and weights the composite (B2's
+      depth variant, in row bands on a rows axis), it is the background
+      of the volumes, and its velocity reprojects the TAA history on the
+      root (windowed under the far preset) before the resolve;
     * the sweep runs per index of the volume axis, and its cube maps are
       all-gathered (the one large movement of the frame);
     * without a rows axis the screen passes (sky, composite, tail, TAA,
@@ -390,12 +401,8 @@ def _render_frame_sharded(sharded, camera: Camera, config: RenderConfig,
         raise ValueError(
             f"the state was sharded with shard_light={sharded.shard_light} "
             f"but config.shard_light_stacks={config.shard_light_stacks}")
-    if show_mesh and sharded.local(0, 0).mesh_indices.shape[0] > 1:
-        raise NotImplementedError(
-            "an opaque mesh under a device mesh is not ported to "
-            "multivolumes_tpu_torch yet: the row-decomposed raster and "
-            "shade (multivolumes_tpu/render/mesh.py:270, 742-759, 858; see "
-            "ROADMAP.md)")
+    has_mesh = bool(show_mesh
+                    and sharded.local(0, 0).mesh_indices.shape[0] > 1)
     # the shards each physical device hosts: {device: {d: local state}}
     hosted = {}
     for r in range(rows):
@@ -407,20 +414,28 @@ def _render_frame_sharded(sharded, camera: Camera, config: RenderConfig,
     frame_idx = sharded.frame_idx
 
     mark("prep")
-    cam = coll.broadcast((camera.eye, camera.view_proj,
-                          camera.screen_to_world), mesh, "camera")
-    eye = {dev: c[0] for dev, c in cam.items()}
-    screen_to_world = {dev: c[2] for dev, c in cam.items()}
+    cams = {dev: Camera(*c) for dev, c in coll.broadcast(
+        (camera.eye, camera.view, camera.proj), mesh, "camera").items()}
+    eye = {dev: c.eye for dev, c in cams.items()}
+    screen_to_world = {dev: c.screen_to_world for dev, c in cams.items()}
     worlds = coll.all_gather([s.volume_worlds for s in by_d], 0, mesh,
                              "volume_worlds")
     tex_ids = coll.all_gather([s.vol_tex_ids for s in by_d], 0, mesh,
                               "vol_tex_ids")
-    per_object = {dev: build_per_object(worlds[dev], cam[dev][1])
+    per_object = {dev: build_per_object(worlds[dev], cams[dev].view_proj)
                   for dev in mesh.physical}
     cull = {dev: cull_lib.cull_volumes(
         per_object[dev], eye[dev], [width, height], config.max_ray_samples,
         config.cube_map_size, config.num_cube_mips,
         adaptive=config.adaptive_raymarch) for dev in mesh.physical}
+
+    # --- opaque mesh: raster + deferred shade, row-banded on a rows axis
+    mesh_out = {dev: None for dev in mesh.physical}
+    depth_map = None
+    if has_mesh:
+        mark("mesh")
+        mesh_out = mesh_lib.render_mesh_sharded(rep, cams, config, mesh)
+        depth_map = {dev: m.depth for dev, m in mesh_out.items()}
 
     mark("light")
     ids_host = _cohort(config, frame_idx)
@@ -440,7 +455,9 @@ def _render_frame_sharded(sharded, camera: Camera, config: RenderConfig,
             st.sh_coeffs, config.max_light_samples, axis,
             has_light_probe=config.has_light_probe, sub_ids=ids,
             sout_cache=sout_all[dev] if shard_light else st.light_sout,
-            impl=impl)
+            impl=impl,
+            shadow_map=mesh_out[dev].shadow if has_mesh else None,
+            shadow_vp=mesh_out[dev].shadow_vp if has_mesh else None)
         if not shard_light:
             st.light_maps[ids] = maps_c.to(st.light_maps.dtype)
             st.light_sweep[ids] = to_light_sweep(maps_c,
@@ -470,12 +487,12 @@ def _render_frame_sharded(sharded, camera: Camera, config: RenderConfig,
         per_object, lod_cull, eye, config.cube_map_size, swap_basis,
         bucket_caps=config.lod_bucket_caps,
         vol_zmax={dev: st.vol_zmax for dev, st in rep.items()}, impl=impl,
-        light_sharded=shard_light)
+        light_sharded=shard_light, depth_map=depth_map)
     cull_c = {dev: c._replace(mip_level=swept[dev].mips,
                               use_cube_map=c.visible)
               for dev, c in cull.items()}
 
-    cw, ch = _composite_size(config, False)
+    cw, ch = _composite_size(config, has_mesh)
     new_history = {}
     # the screen passes: replicated without a rows axis, else on the root
     for dev in ((root,) if has_rows else mesh.physical):
@@ -490,7 +507,8 @@ def _render_frame_sharded(sharded, camera: Camera, config: RenderConfig,
                 cull_c, eye, screen_to_world, cw, ch,
                 num_layers=config.oit_layers,
                 order={k: v.order for k, v in swept.items()},
-                swap_sorted={k: v.swap for k, v in swept.items()}, impl=impl)
+                swap_sorted={k: v.swap for k, v in swept.items()},
+                depth_map=depth_map, impl=impl)
             history = coll.all_gather(
                 [sharded.local(r, 0).taa_history for r in range(rows)], 1,
                 mesh, "taa_history", devices=(root,))[root]
@@ -499,12 +517,13 @@ def _render_frame_sharded(sharded, camera: Camera, config: RenderConfig,
                 swept[dev].cube_maps, per_object[dev], cull_c[dev], eye[dev],
                 screen_to_world[dev], cw, ch, num_layers=config.oit_layers,
                 order=swept[dev].order, swap_sorted=swept[dev].swap,
+                depth_map=None if depth_map is None else depth_map[dev],
                 impl=impl)
             history = rep[dev].taa_history
         mark("tail")
-        sc = _blend_background(volumes, sky, width, height)
+        sc = _blend_background(volumes, sky, width, height, mesh_out[dev])
         out = _resolve_and_map(sc, history, config, use_taa, planar, impl,
-                               mark, device_mesh=mesh)
+                               mark, mesh_out=mesh_out[dev], device_mesh=mesh)
         new_history[dev] = out[2]
         if dev == root:
             image, hdr = out[:2]
@@ -520,9 +539,11 @@ def _render_frame_sharded(sharded, camera: Camera, config: RenderConfig,
                 hist = coll.to_device(new_history[root][:, y0:y1], dev)
             else:
                 hist = new_history[dev]
+            loc = sharded.local(r, d)
             locals_.append(dataclasses.replace(
-                sharded.local(r, d), frame_idx=frame_idx + 1,
-                taa_history=hist))
+                loc, frame_idx=frame_idx + 1, taa_history=hist,
+                mesh_prev_wvp=mesh_out[dev].new_prev_wvp if has_mesh
+                else loc.mesh_prev_wvp))
     return FrameOutput(image=image, hdr=hdr,
                        state=dataclasses.replace(sharded,
                                                  locals=tuple(locals_)))

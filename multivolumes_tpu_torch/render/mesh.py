@@ -23,7 +23,9 @@ arithmetic, so the quantised depth and the packing are kept in int64,
 with the JAX package's 0xFFFFFFFF sentinel and its extra drop slot. A
 raster kernel written by hand is later work (ROADMAP B6). Windows of the
 screen are cut and pasted back by index arithmetic on device tensors, so
-the pass reads no device value on the host.
+the pass reads no device value on the host. Under a device mesh with a
+rows axis the raster and the shade run in row bands
+(`render_mesh_sharded`).
 """
 
 from __future__ import annotations
@@ -244,11 +246,19 @@ def rasterize(verts_clip, indices, width: int, height: int, k: int = 4,
               want_ids: bool = True, cull: int = 0,
               capacity: int | None = None, dense_top: int = 0,
               tail: tuple | None = None, small_tiers: tuple | None = None,
-              dense_window: int | None = None):
+              dense_window: int | None = None, band: tuple | None = None):
     """Scatter z-buffer rasterization with tiered coverage.
 
     verts_clip (V, 4) clip positions; indices (T, 3) int64. Returns
     (depth (H, W) in [0, 1], tri_id (H, W) int64, -1 = empty).
+
+    `band=(row_idx, n_bands)` returns only the pixel rows [row_idx,
+    row_idx + 1) * H / n_bands, (H / n_bands, W) each: the per-triangle
+    emit is computed whole, but only the band's samples enter the
+    scatter-min (every other sample goes to the drop slot) and the dense
+    pass runs over the band's rows; `dense_window` is ignored. It needs
+    the packed-id path (T < 2^17) and H % n_bands == 0. The bands stacked
+    in order are the unbanded raster without a dense window, bit for bit.
 
     Each triangle gets a k x k sample grid over its bbox, snapped to pixel
     centres; by the stable by-edge order, the big tiers ((count, kk),
@@ -364,6 +374,24 @@ def rasterize(verts_clip, indices, width: int, height: int, k: int = 4,
     flat_zq = torch.cat([p[1] for p in parts])
     tids = torch.cat([p[2] for p in parts])
     n_px = height * width
+    out_h, row0 = height, 0
+    if band is not None:
+        row_idx, n_bands = band
+        if not pack_ids:
+            raise ValueError("the banded raster needs the packed-id path "
+                             f"(want_ids and T < 2^{_TBITS}, T = {T})")
+        if height % n_bands:
+            raise ValueError(f"{height} rows do not split into {n_bands} "
+                             "bands")
+        out_h = height // n_bands
+        row0 = row_idx * out_h
+        # band-local pixels; the dead-sample sentinel (height * width) and
+        # every sample outside the band go to the drop slot
+        band_px = out_h * width
+        pix_l = flat_pix - row0 * width
+        flat_pix = torch.where((pix_l >= 0) & (pix_l < band_px), pix_l,
+                               band_px)
+        n_px = band_px
 
     if pack_ids:
         # one scatter-min of (z15 << 17) | tid: nearest z wins, ties to
@@ -372,7 +400,7 @@ def rasterize(verts_clip, indices, width: int, height: int, k: int = 4,
                              ((flat_zq >> (24 - 15)) << _TBITS) | tids)
         buf = torch.full((n_px + 1,), _BIG, dtype=torch.int64, device=dev)
         buf.scatter_reduce_(0, flat_pix, packed, "amin")
-        winner = buf[:n_px].reshape(height, width)
+        winner = buf[:n_px].reshape(out_h, width)
     else:
         zbuf = torch.full((n_px + 1,), _BIG, dtype=torch.int64, device=dev)
         zbuf.scatter_reduce_(0, flat_pix, flat_zq, "amin")
@@ -396,7 +424,7 @@ def rasterize(verts_clip, indices, width: int, height: int, k: int = 4,
         dn = min(dense_top, T)
         dr = cols[order[:dn]]                                   # (dn, 15)
         dtid = tids_all[order[:dn]]
-        use_dw = dense_window is not None and \
+        use_dw = band is None and dense_window is not None and \
             0 < dense_window <= min(width, height)
         if use_dw:
             dw = int(dense_window)
@@ -413,8 +441,8 @@ def rasterize(verts_clip, indices, width: int, height: int, k: int = 4,
         else:
             xg = torch.arange(width, dtype=torch.float32, device=dev)[None] \
                 + 0.5
-            yg = torch.arange(height, dtype=torch.float32,
-                              device=dev)[:, None] + 0.5
+            yg = (torch.arange(out_h, dtype=torch.float32, device=dev)
+                  + float(row0))[:, None] + 0.5
             acc = winner
         r = [dr[:, i, None, None] for i in range(11)]
         dx0, dy0 = xg[None] - r[0], yg[None] - r[1]
@@ -443,7 +471,7 @@ def rasterize(verts_clip, indices, width: int, height: int, k: int = 4,
                              winner & ((1 << _TBITS) - 1))
         return depth, tri_id
     depth = torch.where(winner == _BIG, 1.0, winner.float() / _ZQ)
-    return depth, torch.full((height, width), -1, dtype=torch.int64,
+    return depth, torch.full((out_h, width), -1, dtype=torch.int64,
                              device=dev)
 
 
@@ -624,43 +652,34 @@ def _vec_soa(m, x, y, z):
             x * m[0, 2] + y * m[1, 2] + z * m[2, 2])
 
 
-def render_mesh(state, camera: Camera, config: RenderConfig) -> MeshOutput:
-    """Base pass + deferred shade (the shadow map is cached in state).
+class _FrameOperands(NamedTuple):
+    """One device's per-frame operands of the base pass."""
+    wvp: torch.Tensor         # (4, 4) world-view-proj of this frame
+    s_vp: torch.Tensor        # (4, 4) shadow view-proj
+    clip_jit: torch.Tensor    # (V, 4) jittered clip positions
+    raster_kw: dict           # rasterize's tier levers for this preset
+    center: tuple             # mesh bbox centre (px), device scalars
 
-    Under the far preset (the host pick guarantees the projected bbox <=
-    raster_far_bound), the dense raster pass and the deferred shade run
-    in a `mesh_shade_window` square around the mesh when the window
-    provably contains it; the near preset shades the full screen."""
+
+def _frame_operands(state, camera: Camera,
+                    config: RenderConfig) -> _FrameOperands:
     width, height = config.width, config.height
-    dev = state.mesh_verts.device
-    world = state.mesh_world
-    wvp = world @ camera.view_proj
-    s_vp = shadow_view_proj(state)
-    shadow_wvp = world @ s_vp
-    pos = state.mesh_verts[:, :3]
-    nrm = state.mesh_verts[:, 3:6]
-    idx = state.mesh_indices
-
+    wvp = state.mesh_world @ camera.view_proj
     # the jitter rides as two f32-exact scalars (no host-to-device copy)
     jx, jy = (float(j) for j in halton_jitter(state.frame_idx,
                                                float(width), float(height)))
-    clip = math3d.transform_point(pos, wvp)
+    clip = math3d.transform_point(state.mesh_verts[:, :3], wvp)
     clip_jit = torch.cat([clip[:, :1] + jx * clip[:, 3:4],
                           clip[:, 1:2] + jy * clip[:, 3:4], clip[:, 2:]],
                          dim=1)
-    cull = 1 if config.mesh_backface_cull else 0
-    cap = _cull_capacity(idx.shape[0]) if config.mesh_backface_cull else None
     far = far_preset(config)
-    tiers = config.raster_far_tiers if far else NEAR_TIERS
-    small = config.raster_far_small if far else None
-    win = config.mesh_shade_window
-    fits = far and win >= far_ceiling(config)
-    dw = win if fits else None
-    depth, tri_id = rasterize(clip_jit, idx, width, height,
-                              big_tiers=tiers, cull=cull, capacity=cap,
-                              dense_top=16, tail=config.raster_tail,
-                              small_tiers=small, dense_window=dw)
-
+    raster_kw = dict(
+        big_tiers=config.raster_far_tiers if far else NEAR_TIERS,
+        cull=1 if config.mesh_backface_cull else 0,
+        capacity=(_cull_capacity(state.mesh_indices.shape[0])
+                  if config.mesh_backface_cull else None),
+        dense_top=16, tail=config.raster_tail,
+        small_tiers=config.raster_far_small if far else None)
     # projected mesh bbox centre (px): anchors the shade window here and
     # TAA's windowed reprojection downstream
     wc = clip[:, 3]
@@ -671,16 +690,28 @@ def render_mesh(state, camera: Camera, config: RenderConfig) -> MeshOutput:
           + torch.where(okv, cxs, -1e9).max()) * 0.5
     cy = (torch.where(okv, cys, 1e9).min()
           + torch.where(okv, cys, -1e9).max()) * 0.5
+    return _FrameOperands(wvp, shadow_view_proj(state), clip_jit, raster_kw,
+                          (cx, cy))
 
-    use_window = fits and 0 < win < min(width, height)
-    tbl = _triangle_planes(clip_jit, pos, nrm, idx, width, height)
+
+def _shader(state, camera: Camera, config: RenderConfig,
+            op: _FrameOperands):
+    """-> shade(tri_w, xs, ys): the deferred shade of the pixels at rows ys
+    (h,) and columns xs (w,) whose winning triangles are tri_w (h, w) ->
+    ((r, g, b), (vx, vy), valid), each (h, w). Pure per-pixel work, so
+    any cut of the screen shades to the same values."""
+    world = state.mesh_world
+    shadow_wvp = world @ op.s_vp
+    tbl = _triangle_planes(op.clip_jit, state.mesh_verts[:, :3],
+                           state.mesh_verts[:, 3:6], state.mesh_indices,
+                           config.width, config.height)
 
     def shade(tri_w, xs, ys):
         valid, pl_, nl_ = _interp_planes(tbl, tri_w, xs, ys)
         wsx, wsy, wsz, _ = _pt_soa(world, *pl_)
         nrm_w = _vec_soa(world, *nl_)
         lsx, lsy, lsz, _ = _pt_soa(shadow_wvp, *pl_)
-        csx, csy, _csz, csw = _pt_soa(wvp, *pl_)
+        csx, csy, _csz, csw = _pt_soa(op.wvp, *pl_)
         tsx, tsy, _tsz, tsw = _pt_soa(state.mesh_prev_wvp, *pl_)
         color, velocity = shade_base_pass(
             (wsx, wsy, wsz), nrm_w, (lsx, lsy, lsz), (csx, csy, csw),
@@ -691,25 +722,173 @@ def render_mesh(state, camera: Camera, config: RenderConfig) -> MeshOutput:
         vel = tuple(torch.where(valid, c, 0.0) for c in velocity)
         return col, vel, valid
 
-    if use_window:
-        xs = window_index(cx, win, width, dev)
-        ys = window_index(cy, win, height, dev)
-        yi, xi = ys[:, None], xs[None, :]
-        col_w, vel_w, valid_w = shade(tri_id[yi, xi], xs, ys)
+    return shade
 
-        def paste(field, dtype=torch.float32):
-            out = torch.zeros((height, width), dtype=dtype, device=dev)
-            out[yi, xi] = field
-            return out
 
-        col = tuple(paste(c) for c in col_w)
-        vel = tuple(paste(c) for c in vel_w)
-        valid = paste(valid_w, torch.bool)
+def _window_fits(config: RenderConfig) -> bool:
+    """The far preset is on and `mesh_shade_window` covers the preset
+    pick's hysteresis ceiling, so the window provably contains the
+    mesh."""
+    return far_preset(config) and config.mesh_shade_window \
+        >= far_ceiling(config)
+
+
+def _shade_window(config: RenderConfig) -> int:
+    """The side of the shade window, or 0 for a full-screen shade (the
+    window must contain the mesh and be smaller than the screen)."""
+    win = config.mesh_shade_window
+    return win if _window_fits(config) and 0 < win < min(
+        config.width, config.height) else 0
+
+
+def _window(op: _FrameOperands, config: RenderConfig, dev):
+    """(ys, xs) pixel indices of the shade window around the mesh."""
+    win = config.mesh_shade_window
+    return (window_index(op.center[1], win, config.height, dev),
+            window_index(op.center[0], win, config.width, dev))
+
+
+def _paste(fields, ys, xs, height: int, width: int, dev):
+    """Window fields ((r, g, b), (vx, vy), valid) -> full-screen fields,
+    zero (False) outside the window."""
+    yi, xi = ys[:, None], xs[None, :]
+
+    def paste(field, dtype=torch.float32):
+        out = torch.zeros((height, width), dtype=dtype, device=dev)
+        out[yi, xi] = field
+        return out
+
+    col, vel, valid = fields
+    return (tuple(paste(c) for c in col), tuple(paste(c) for c in vel),
+            paste(valid, torch.bool))
+
+
+def render_mesh(state, camera: Camera, config: RenderConfig) -> MeshOutput:
+    """Base pass + deferred shade (the shadow map is cached in state).
+
+    Under the far preset (the host pick guarantees the projected bbox <=
+    raster_far_bound), the dense raster pass and the deferred shade run
+    in a `mesh_shade_window` square around the mesh when the window
+    provably contains it; the near preset shades the full screen. Under
+    a device mesh: `render_mesh_sharded`."""
+    width, height = config.width, config.height
+    dev = state.mesh_verts.device
+    op = _frame_operands(state, camera, config)
+    depth, tri_id = rasterize(
+        op.clip_jit, state.mesh_indices, width, height,
+        dense_window=(config.mesh_shade_window if _window_fits(config)
+                      else None), **op.raster_kw)
+    shade = _shader(state, camera, config, op)
+    if _shade_window(config):
+        ys, xs = _window(op, config, dev)
+        col, vel, valid = _paste(
+            shade(tri_id[ys[:, None], xs[None, :]], xs, ys), ys, xs, height,
+            width, dev)
     else:
         col, vel, valid = shade(
             tri_id, torch.arange(width, device=dev),
             torch.arange(height, device=dev))
-
     return MeshOutput(color=col, valid=valid, velocity=vel, depth=depth,
-                      shadow=state.mesh_shadow_map, shadow_vp=s_vp,
-                      new_prev_wvp=wvp, screen_center=(cx, cy))
+                      shadow=state.mesh_shadow_map, shadow_vp=op.s_vp,
+                      new_prev_wvp=op.wvp, screen_center=op.center)
+
+
+def render_mesh_sharded(states: dict, cameras: dict, config: RenderConfig,
+                        mesh) -> dict:
+    """The mesh pass under a device mesh `mesh` (a
+    `parallel.collectives.DeviceMesh`; counterpart of the JAX
+    `render_mesh(..., device_mesh=...)`, `multivolumes_tpu/render/
+    mesh.py:742-865`). `states` and `cameras` are replicated dicts
+    {device: SceneState / Camera} over its physical devices, and so is
+    the result {device: MeshOutput}.
+
+    With a "rows" axis, H % rows == 0 and T < 2^17, band r rasterizes its
+    rows on `mesh.device(r, 0)` (the per-triangle emit replicates, the
+    scatter-min is the band's own) and the depth bands are all-gathered
+    onto every physical device: the sweep on every volume shard and the
+    composite on every band need the whole depth map. The deferred shade
+    then runs
+    * under the far preset's window, when the window splits into the
+      rows: rows device r shades rows [r win / rows, (r + 1) win / rows)
+      of the window from the all-gathered triangle ids (JAX
+      `mesh.py:840-865`); when it does not split, the root shades the
+      window;
+    * under the near preset (the full screen): each band shades its own
+      rows from its own ids. The JAX package lets GSPMD cut this shade;
+      it is per-pixel work, so any cut gives the same values.
+    The shaded pieces are pasted on `mesh.root`, where the screen passes
+    run, so only the root's MeshOutput carries colour, velocity and
+    validity (None elsewhere); every device's carries the depth map, the
+    cached shadow map, the shadow view-proj, the new previous-frame
+    world-view-proj and the mesh's screen centre, computed there from
+    its replicated state (the root's centre anchors the windowed TAA
+    reprojection, so nothing is read on the host).
+
+    Otherwise (no rows axis, or the JAX package's other two conditions)
+    the whole pass runs on each physical device, as the other replicated
+    passes do: the JAX code's own else branch."""
+    from multivolumes_tpu_torch.parallel import collectives as coll
+
+    width, height = config.width, config.height
+    rows, root = mesh.rows, mesh.root
+    n_tris = states[root].mesh_indices.shape[0]
+    if not ("rows" in mesh.axis_names and rows > 1 and height % rows == 0
+            and n_tris < (1 << _TBITS)):
+        return {dev: render_mesh(states[dev], cameras[dev], config)
+                for dev in mesh.physical}
+    frame_ops = {dev: _frame_operands(states[dev], cameras[dev], config)
+                 for dev in mesh.physical}
+    band_devs = [mesh.device(r, 0) for r in range(rows)]
+    bands = [rasterize(frame_ops[dev].clip_jit, states[dev].mesh_indices,
+                       width, height, band=(r, rows),
+                       **frame_ops[dev].raster_kw)
+             for r, dev in enumerate(band_devs)]
+    depth = coll.all_gather([b[0] for b in bands], 0, mesh, "mesh_depth")
+
+    shaders = {}
+
+    def shade(dev, tri_w, xs, ys):
+        if dev not in shaders:
+            shaders[dev] = _shader(states[dev], cameras[dev], config,
+                                   frame_ops[dev])
+        return shaders[dev](tri_w, xs, ys)
+
+    win = _shade_window(config)
+    out_h = height // rows
+    if win and win % rows == 0:
+        tri = coll.all_gather([b[1] for b in bands], 0, mesh, "mesh_tri_id",
+                              devices=tuple(dict.fromkeys(band_devs)))
+        wb = win // rows
+        pieces = []
+        for r, dev in enumerate(band_devs):
+            ys, xs = _window(frame_ops[dev], config, dev)
+            ys = ys[r * wb:(r + 1) * wb]
+            pieces.append(shade(dev, tri[dev][ys[:, None], xs[None, :]], xs,
+                                ys))
+    elif win:
+        tri = coll.all_gather([b[1] for b in bands], 0, mesh, "mesh_tri_id",
+                              devices=(root,))[root]
+        ys, xs = _window(frame_ops[root], config, root)
+        pieces = [shade(root, tri[ys[:, None], xs[None, :]], xs, ys)]
+    else:
+        # the full-screen shade: per raster band, from the band's own ids
+        pieces = [shade(dev, tri_b, torch.arange(width, device=dev),
+                        r * out_h + torch.arange(out_h, device=dev))
+                  for r, (dev, (_d, tri_b)) in enumerate(zip(band_devs,
+                                                             bands))]
+    # the pieces, in row order, onto the root
+    fields = coll.all_gather([torch.stack(p[0] + p[1]) for p in pieces], 1,
+                             mesh, "mesh_shade", devices=(root,))[root]
+    valid = coll.all_gather([p[2] for p in pieces], 0, mesh, "mesh_valid",
+                            devices=(root,))[root]
+    shaded = (tuple(fields[:3]), tuple(fields[3:]), valid)
+    if win:
+        ys, xs = _window(frame_ops[root], config, root)
+        shaded = _paste(shaded, ys, xs, height, width, root)
+    return {dev: MeshOutput(
+        color=shaded[0] if dev == root else None,
+        valid=shaded[2] if dev == root else None,
+        velocity=shaded[1] if dev == root else None,
+        depth=depth[dev], shadow=states[dev].mesh_shadow_map,
+        shadow_vp=op.s_vp, new_prev_wvp=op.wvp, screen_center=op.center)
+        for dev, op in frame_ops.items()}

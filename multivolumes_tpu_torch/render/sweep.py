@@ -442,6 +442,8 @@ def ray_march_view_sweep_lod_sharded(
     vol_zmax=None,      # replicated, or None
     impl: str | None = None,
     light_sharded: bool = False,
+    depth_map=None,     # replicated {device: (H, W)} scene clip depth, or
+                        # None
 ) -> dict:
     """The LOD sweep partitioned over the mesh's volume axis: shard d
     LOD-buckets and marches its own N / D volumes on `mesh.device(0, d)`
@@ -453,7 +455,9 @@ def ray_march_view_sweep_lod_sharded(
     gathered order is a permutation of 0..N-1. The source volumes stay
     replicated; the light stacks are replicated (each shard reads its
     slice) or, with `light_sharded`, sharded (each shard reads its own
-    shard, so no stack ever moves)."""
+    shard, so no stack ever moves). With `depth_map` (the mesh's, whole on
+    every device), each shard's rays stop at the scene depth and its cube
+    depth is all-gathered with the maps, as in the unsharded sweep."""
     from multivolumes_tpu_torch.parallel import collectives
 
     nd = mesh.n_volumes_axis
@@ -472,13 +476,15 @@ def ray_march_view_sweep_lod_sharded(
             light_sweep[d] if light_sharded else light_sweep[dev][rows],
             per_object[dev].take(rows), cull[dev].take(rows), eye[dev],
             cube_map_size, swap_basis[dev], bucket_caps=caps,
-            vol_zmax=None if vol_zmax is None else vol_zmax[dev], impl=impl)
+            vol_zmax=None if vol_zmax is None else vol_zmax[dev], impl=impl,
+            depth_map=None if depth_map is None else depth_map[dev])
         parts.append((out.cube_maps.color, out.mips, out.order + d * nl,
-                      out.swap))
-    color, mips, order, swap = (
+                      out.swap) + (() if depth_map is None
+                                   else (out.cube_maps.depth,)))
+    color, mips, order, swap, *depth = (
         collectives.all_gather(col, 0, mesh, name) for col, name in zip(
             zip(*parts), ("cube_maps", "sweep_mips", "sweep_order",
-                          "sweep_swap")))
-    return {dev: SortedSweep(CubeMaps(color=color[dev], depth=None),
-                             mips[dev], order[dev], swap[dev])
-            for dev in mesh.physical}
+                          "sweep_swap", "cube_depth")))
+    return {dev: SortedSweep(
+        CubeMaps(color=color[dev], depth=depth[0][dev] if depth else None),
+        mips[dev], order[dev], swap[dev]) for dev in mesh.physical}

@@ -15,7 +15,8 @@ on which rays. For the first `--rays` of those rays it then cuts the
 ray's window after plane m, for every m, and prints the first plane at
 which the two part, with the alpha and red both have accumulated around
 it: a threshold flip shows as one plane where one side adds a sample and
-the other does not.
+the other does not. `one_sample_flip` finds that plane by bisection and
+checks the flip's signature on any B1 launch's operands.
 """
 
 from __future__ import annotations
@@ -65,42 +66,79 @@ def frame_launch(bucketed: bool, device):
     return a, k
 
 
-def first_parting_plane(a, k, ray, dtype):
-    """March ray (v, f, i, j)'s volume alone with its windows cut after
-    each plane in turn -> (first plane where kernel and plain version
-    part by more than 1e-4, or -1; per-plane (kernel, plain) of the
-    ray's accumulated (r, a))."""
+def cut_march(a, k, ray, dtype, m: int):
+    """March ray (v, f, i, j)'s volume alone with its window cut after
+    plane m, by B1 and by its plain version -> (2, 4): the ray's
+    accumulated (r, g, b, a) of each; zeros for m < 0."""
     from multivolumes_tpu_torch.render import sweep as sweep_mod
     from multivolumes_tpu_torch.render.sweep import SweepParams
 
     vols, light, tex, eye_f, params, smp, run, planes, size = a
     v, f, i, j = ray
+    if m < 0:
+        return torch.zeros((2, 4), device=eye_f.device)
     q = slice(v, v + 1)
     ew = eye_f[v, f, 2]
     ew_c = ew.clamp(-1.0, 1.0)
     delta = (1.0 - ew_c) / planes
     inv_gz = 1.0 / (1.0 - ew).clamp(min=1e-6)
-    ks = torch.arange(planes, device=ew.device)
-    sk = (ew_c + (ks + 0.5) * delta - ew) * inv_gz
+    s_m = (ew_c + (m + 0.5) * delta - ew) * inv_gz
     lrow = (torch.tensor([v], device=ew.device) if k.get("light_ids") is None
             else k["light_ids"][q])
-    rows = []
-    for m in range(planes):
-        cut = SweepParams(params.s_in[q],
-                          torch.minimum(params.s_end[q], sk[m] + 1e-7),
-                          params.ray_len[q], params.active[q])
-        a1 = (vols.to(dtype), light.to(dtype), tex[q], eye_f[q], cut, smp[q],
-              run[q], planes, size)
-        kw = dict(light_ids=lrow, vol_zmax=k.get("vol_zmax"),
-                  n_eff_b=None if k.get("n_eff_b") is None
-                  else k["n_eff_b"][q])
-        out = [sweep_mod.sweep_march(*a1, **kw, impl=impl)[0, f, :, i, j]
-               for impl in ("kernel", "plain")]
-        rows.append(torch.stack(out))                    # (2, 4)
-    rows = torch.stack(rows)                             # (P, 2, 4)
+    cut = SweepParams(params.s_in[q], torch.minimum(params.s_end[q],
+                                                    s_m + 1e-7),
+                      params.ray_len[q], params.active[q])
+    a1 = (vols.to(dtype), light.to(dtype), tex[q], eye_f[q], cut, smp[q],
+          run[q], planes, size)
+    kw = dict(light_ids=lrow, vol_zmax=k.get("vol_zmax"),
+              n_eff_b=None if k.get("n_eff_b") is None else k["n_eff_b"][q])
+    return torch.stack([sweep_mod.sweep_march(*a1, **kw, impl=impl)[
+        0, f, :, i, j] for impl in ("kernel", "plain")])
+
+
+def _parted(rows) -> bool:
+    return bool((rows[0] - rows[1]).abs().amax() > 1e-4)
+
+
+def first_parting_plane(a, k, ray, dtype):
+    """Ray (v, f, i, j) cut after each plane in turn (`cut_march`) ->
+    (first plane where kernel and plain version part by more than 1e-4,
+    or -1; per-plane (kernel, plain) of the ray's accumulated (r, g, b,
+    a))."""
+    rows = torch.stack([cut_march(a, k, ray, dtype, m)
+                        for m in range(a[7])])           # (P, 2, 4)
     parted = (rows[:, 0] - rows[:, 1]).abs().amax(1) > 1e-4
     first = int(parted.nonzero()[0]) if bool(parted.any()) else -1
     return first, rows
+
+
+def one_sample_flip(a, k, ray):
+    """Whether B1 and its plain version part on ray (v, f, i, j) by one
+    sample that one side composites and the other skips (a threshold
+    flip): bisect the plane m after which the two cut marches part
+    (`cut_march`, agreeing within 1e-4 after plane m - 1), then require
+    one side's accumulation to be unchanged across plane m (within 1e-6)
+    while the other's alpha grows. -> (m, "kernel" or "plain", the side
+    that adds the sample; or None when the two do not part so)."""
+    dtype = a[0].dtype
+    lo, hi = -1, a[7] - 1
+    rows_lo, rows_hi = cut_march(a, k, ray, dtype, lo), \
+        cut_march(a, k, ray, dtype, hi)
+    if not _parted(rows_hi):
+        return hi, None
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        rows = cut_march(a, k, ray, dtype, mid)
+        if _parted(rows):
+            hi, rows_hi = mid, rows
+        else:
+            lo, rows_lo = mid, rows
+    grew = rows_hi - rows_lo                     # (2, 4): kernel, plain
+    still = grew.abs().amax(1) <= 1e-6
+    for side, other, name in ((1, 0, "kernel"), (0, 1, "plain")):
+        if bool(still[side]) and float(grew[other, 3]) > 1e-4:
+            return hi, name
+    return hi, None
 
 
 def main(argv=None) -> int:

@@ -418,13 +418,24 @@ def test_dryrun_on_logical_cpu_shards():
 
 
 def test_sharded_step_with_an_opaque_mesh_raises(port_scene):
+    """The sharded step takes an opaque mesh (here a degenerate one that
+    covers no pixel, so the frame is the unsharded one); with the mesh it
+    raises only for the settings it does not run yet, naming them
+    (tests/test_torch_sharding_mesh.py holds a real mesh). The name is
+    kept from when the sharded step refused every opaque mesh."""
     ps, cam = port_scene
     with_mesh = dataclasses.replace(
         clone_state(ps), mesh_indices=torch.zeros((2, 3), dtype=torch.int64))
     mesh = _port_mesh(2, 2)
-    step = psh.make_sharded_step(port_config(CFG.with_(show_mesh=True)),
-                                 mesh)
-    with pytest.raises(NotImplementedError, match="row-decomposed raster"):
+    cfg = port_config(CFG.with_(show_mesh=True))
+    img, state = psh.make_sharded_step(cfg, mesh)(
+        psh.shard_state(clone_state(with_mesh), mesh), cam)
+    want = pframe.render_frame(clone_state(with_mesh), cam, cfg)
+    np.testing.assert_allclose(n(img), n(want.image), atol=2e-5)
+    assert torch.equal(psh.unshard_state(state).mesh_prev_wvp,
+                       want.state.mesh_prev_wvp)
+    step = psh.make_sharded_step(cfg.with_(composite_mode="warp"), mesh)
+    with pytest.raises(NotImplementedError, match="composite_mode='warp'"):
         step(psh.shard_state(with_mesh, mesh), cam)
 
 
