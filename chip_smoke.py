@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py        # from the root of a checkout; one CUDA card
     python3 chip_smoke.py --profile-reference   # phase 10 alone, profiled
+    python3 chip_smoke.py --profile-sharded-settings   # phase 11 alone,
+                                                       # every setting profiled
 
 Phases (any failure exits non-zero, and no result line is printed):
   1. the card: `nvidia-smi` name and power limit, torch and CUDA versions;
@@ -103,7 +105,23 @@ Phases (any failure exits non-zero, and no result line is printed):
      with every volume world rotated through `set_volume_world`, B1-B4
      launched by neither; and the pinned `reference_4vol` golden
      (tests/goldens/, read with numpy) rendered on the card at its limits
-     (mean < 2e-3, p99.9 < 3e-2).
+     (mean < 2e-3, p99.9 < 3e-2);
+ 11. the sharded step's other settings (`phase_sharded_settings`): the
+     demo un-bucketed with the tile composite, un-bucketed with the warp
+     composite, with the point light (the reference light march) and the
+     LOD sweep, in full reference semantics, and un-bucketed with the
+     test mesh, each for 2 orbit frames (1 under the reference light)
+     through `sharding.make_sharded_step` on 2 rows x 1 and 2 rows x 4 volume
+     shards of the card against the unsharded frames of the same setting
+     (atol 2e-5 where no per-shard LOD caps apply, else the no-mesh
+     sharded limits), with its kernels launched and no other, ms/frame,
+     peak memory, the movements and a profiled frame (not under the
+     reference light: `--profile-sharded-settings`); on 2 rows x 4 of the
+     un-bucketed tile setting, B1 per volume shard (16 @ 128) against its
+     plain version (the `sweep@unbucketed-shard-d<shard>` rows,
+     `flip_tol`) and the B2 band on the unsorted f32 maps (the
+     `composite@band-unsorted` row), its two bands against the unbanded
+     launch bit for bit.
 
 Each kernel's bound (`bound_ms`) is the larger of two times: the bytes
 it must move (each input read once, each output written once) over the
@@ -168,6 +186,9 @@ ROW_KERNEL = {"sweep@unbucketed": ("sweep", "unbucketed"),
               "composite@depth-band": ("composite_depth_band",
                                        "sharded_mesh"),
               "sweep@shard": ("sweep", "sharded_mesh"),
+              "sweep@unbucketed-shard": ("sweep", "sharded_settings"),
+              "composite@band-unsorted": ("composite_band",
+                                          "sharded_settings"),
               "taa_band": ("taa_band", "sharded"),
               "raster_bin_eval": ("raster_bin_eval", "raster_bin")}
 # the kernels of the un-bucketed frame with the warp composite, and of the
@@ -180,15 +201,33 @@ SHARDED = ("sweep", "composite_band", "light_self_scan", "light_advect_mul",
            "taa_band")
 SHARDED_MESH = ("sweep", "composite_depth_band", "light_self_scan_sm",
                 "light_advect_mul", "taa_band")
+# the sharded step's other settings: name -> (config change, with the test
+# mesh, the kernels it launches on a mesh with a rows axis; the reference
+# light runs none of B3 / B4, the warp and gather composites none of B2)
+SETTINGS_SHARDED = {
+    "unbucketed tile": (dict(lod_bucket_caps=None), False, SHARDED),
+    "unbucketed warp": (dict(lod_bucket_caps=None, composite_mode="warp"),
+                        False, ("sweep", "light_self_scan",
+                                "light_advect_mul", "taa_band")),
+    "point light": (dict(point_light=True), False,
+                    ("sweep", "composite_band", "taa_band")),
+    "reference": (dict(march_mode="reference", light_mode="reference",
+                       composite_mode="gather"), False, ("taa_band",)),
+    "unbucketed tile, torus": (dict(lod_bucket_caps=None), True,
+                               SHARDED_MESH),
+}
 
 
 def row_kernel(name):
-    """Summary row name -> (launch-count key, path): the part before "-C<n>"
-    for the shadow-map rows, before the first "-" for the per-shard rows
-    ("sweep@shard-S<size>-d<shard>"), or before "@"."""
+    """Summary row name -> (launch-count key, path): the longest entry of
+    ROW_KERNEL that is the name or, followed by "-", begins it (the
+    shadow-map rows "light_self_scan@sm-C<n>", the per-shard rows
+    "sweep@shard-S<size>-d<shard>"), else the part before "@"."""
+    keys = [k for k in ROW_KERNEL if name == k or name.startswith(k + "-")]
+    if keys:
+        return ROW_KERNEL[max(keys, key=len)]
     base = name.split("@")[0]
-    return ROW_KERNEL.get(name.split("-C")[0], ROW_KERNEL.get(
-        name.split("-")[0], ROW_KERNEL.get(base, (base, "plain"))))
+    return ROW_KERNEL.get(base, (base, "plain"))
 
 # the kernels one composite call launches (the depth variant's vote first)
 COMPOSITE_KERNELS = ("tile_composite_kernel", "mesh_tile_kernel")
@@ -602,6 +641,14 @@ def main() -> int:
     # --- 3. each kernel against its plain version -------------------------
     dev = torch.device("cuda")
     cfg = RenderConfig(**DEMO)
+    if sys.argv[1:] == ["--profile-sharded-settings"]:
+        # the sharded settings' phase alone, every setting profiled
+        phase_sharded_settings(
+            cfg, dev, write_torus_obj(os.path.join(HERE, "build",
+                                                   "torus70k.obj"),
+                                      MESH_TRIS), smi_line, profile_all=True)
+        log(smi_line)
+        return 0
     if sys.argv[1:] == ["--profile-reference"]:
         # the reference phase alone, with a frame of the full reference
         # semantics under the profiler: its device busy time (the profile
@@ -631,6 +678,12 @@ def main() -> int:
     results += ref_results
     phase_golden(dev)
     log(f"[reference] the reference phase took {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    settings_results, launches["sharded_settings"] = phase_sharded_settings(
+        cfg, dev, mesh_path, smi_line)
+    results += settings_results
+    log(f"[sharded-settings] the phase took {time.time() - t0:.1f} s")
     torch.cuda.empty_cache()
     bin_results, launches["raster_bin"] = phase_raster_bin(dev)
     results += sharded_results + bin_results
@@ -1598,15 +1651,15 @@ def flip_tol(args, kwargs, what, max_rays: int = 16):
     """B1 against its plain version at the buckets' atol 2e-3 + rtol 2e-2
     on every element except those of rays where the two part by one
     sample that one side composites and the other skips, each proven
-    (`tools.sweep_outliers.one_sample_flip`): a density or interval test
+    (`tools.sweep_outliers.one_sample_flips`): a density or interval test
     whose bf16-rounded operands land on either side. At most `max_rays`
-    such rays a launch (the proof bisects the planes, a few kernel and
-    plain marches a ray); where there are some, the launch with f32
-    stacks is logged too."""
+    such rays a launch (the proof bisects the planes of all of them at
+    once, two marches of their volumes a step); where there are some, the
+    launch with f32 stacks is logged too."""
     def tol(g, w):
         from multivolumes_tpu_torch.render import sweep as sweep_mod
         from multivolumes_tpu_torch.tools.sweep_outliers import (
-            one_sample_flip)
+            one_sample_flips)
 
         err = (g - w).abs()
         bad = err > 2e-3 + 2e-2 * w.abs()
@@ -1616,8 +1669,8 @@ def flip_tol(args, kwargs, what, max_rays: int = 16):
         if not rays:
             return float(err.max())
         t0 = time.perf_counter()
-        for ray in rays:
-            m, side = one_sample_flip(args, kwargs, ray)
+        for ray, (m, side) in zip(rays, one_sample_flips(args, kwargs,
+                                                         rays)):
             v, f, i, j = ray
             log(f"  {what}: ray {ray} (largest element "
                 f"{float(err[v, f, :, i, j].max()):.3e}) parts at plane {m}"
@@ -1892,6 +1945,209 @@ def sharded_mesh_frames(engine, dev, meshes, frames: int):
     check(launches is not None,
           "no mesh with a rows axis and volume shards was driven")
     return results, launches
+
+
+def phase_sharded_settings(cfg, dev, mesh_path, smi_line, frames: int = 2,
+                           profile_all: bool = False):
+    """The sharded frame step at the demo scale in the settings outside
+    the main path (`SETTINGS_SHARDED`), each on 2 rows x 1 and 2 rows x 4
+    volume shards of the card, `frames` orbit frames against the
+    unsharded frames of the same setting from the same state (one frame
+    under the reference light, whose frames take seconds): at atol
+    2e-5 where no per-shard LOD caps apply (2 rows x 1, the un-bucketed
+    sweep and the reference march), at the no-mesh sharded limits where
+    they do (mean < 2e-3, p99.9 < 1e-1). Each sharded path runs with the
+    launch counts set to 0 just before it and read just after; its
+    kernels must launch and no other. Per setting and mesh: ms/frame
+    (host clock, sync per frame), peak memory, the movements of the last
+    frame, and the device busy time of one profiled frame (with
+    `profile_all` also under the reference light, whose profile of half
+    a million kernels takes minutes). On 2 rows x 4 of the un-bucketed
+    tile setting, B1 per volume shard (16 @ 128, one launch a shard)
+    against its plain version (`flip_tol`; the rows
+    `sweep@unbucketed-shard-d<shard>`) and the B2 band on the unsorted
+    f32 maps (the `composite@band-unsorted` row), whose two bands must
+    equal the unbanded launch bit for bit. Returns (the summary rows, the
+    launch counts of that path)."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from multivolumes_tpu_torch.core import camera as cam_lib
+    from multivolumes_tpu_torch.engine import MultiRayCaster
+    from multivolumes_tpu_torch.ops import sweep as sweep_ops
+    from multivolumes_tpu_torch.parallel import sharding
+    from multivolumes_tpu_torch.render import frame as frame_lib
+    from multivolumes_tpu_torch.render import sweep as sweep_mod
+    from multivolumes_tpu_torch.render import tilecast as tile_mod
+
+    card = torch.device("cuda", 0) if dev.type == "cuda" else dev
+    meshes = [("2 rows x 1", sharding.make_mesh([card] * 2, rows=2)),
+              ("2 rows x 4", sharding.make_mesh([card] * 8, rows=2))]
+    times_s = [0.25 * i for i in range(frames)]
+    cams = [cam_lib.orbit_camera(tm, cfg.aspect_ratio, device=dev)
+            for tm in times_s]
+    eyes = [(np.sin(tm * 0.5) * 60.0, 6.0, np.cos(tm * 0.5) * 60.0)
+            for tm in times_s]
+    results, launches = [], None
+    for setting, (change, with_mesh, kernels) in SETTINGS_SHARDED.items():
+        t_setting = time.time()
+        engine = MultiRayCaster(cfg.with_(**change), device=dev)
+        if with_mesh:
+            engine.set_mesh(mesh_path)
+            presets = {engine.select_raster_preset(eye) for eye in eyes}
+            check(presets == {"far"}, f"{setting}: presets {presets}")
+        config = engine.config
+        # the reference light's frames take seconds: one frame each
+        n_frames = (frames if config.light_mode == "sweep"
+                    and not config.point_light else 1)
+        per_shard_caps = (config.lod_bucket_caps is not None
+                          and config.adaptive_raymarch
+                          and config.march_mode == "sweep")
+        start = clone_state(engine.state)
+        single, state = [], clone_state(start)
+        for cam in cams[:n_frames]:
+            out = frame_lib.render_frame(state, cam, config)
+            state = out.state
+            single.append(out.image)
+        del state, engine
+        torch.cuda.synchronize()
+        for mesh_what, mesh in meshes:
+            what = f"sharded {setting} ({mesh_what})"
+            step = sharding.make_sharded_step(config, mesh)
+            state = sharding.shard_state(clone_state(start), mesh)
+            n_vol_shards = mesh.n_volumes_axis
+            held = setting == "unbucketed tile" and n_vol_shards > 1
+            images, times, last = [], [], {}
+
+            def run():
+                nonlocal state
+                for f, cam in enumerate(cams[:n_frames]):
+                    mesh.log.clear()
+                    t0 = time.perf_counter()
+                    with (capture([(sweep_mod, "sweep_march"),
+                                   (tile_mod, "tile_composite")])
+                          if held and f == n_frames - 1
+                          else contextlib.nullcontext({})) as calls:
+                        img, state = step(state, cam)
+                    last.update(calls)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    images.append(img)
+                return images
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            _, counted = drive(what, run, n_frames, kernels)
+            peak = torch.cuda.max_memory_allocated() - base
+            others = {k: c for k, c in counted.items()
+                      if c and k not in kernels}
+            check(not others, f"{what} launched {others}")
+            check(state.frame_idx == start.frame_idx + n_frames,
+                  f"{what}: frame_idx {state.frame_idx}")
+            log(f"[sharded-settings] {what}: ms/frame (host clock, sync "
+                f"per frame) " + " ".join(f"{t:.2f}" for t in times)
+                + f"; launches {counted}; peak memory "
+                f"{peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB "
+                f"held before; {smi_line}")
+            log(f"[sharded-settings] {what}: movements of the last frame "
+                + " ".join(f"{n} {b} B" for n, _e, b in mesh.log)
+                + f"; {sum(b for _n, _e, b in mesh.log)} B in all")
+            for f, (img, want) in enumerate(zip(images, single)):
+                check(img.device == mesh.root, f"image on {img.device}")
+                check(bool(torch.isfinite(img).all()), f"non-finite {what}")
+                if n_vol_shards == 1 or not per_shard_caps:
+                    err = allclose_tol(2e-5, 0.0, f"{what}, frame {f} vs "
+                                       f"unsharded")(img, want)
+                    log(f"  {what}, frame {f} vs unsharded: max {err:.3e}")
+                else:
+                    image_tol(2e-3, 99.9, 1e-1, f"{what}, frame {f} vs "
+                              f"unsharded")(img, want)
+            if held:
+                launches = counted
+                results += unbucketed_shard_rows(what, last, mesh, config,
+                                                 sweep_mod, sweep_ops,
+                                                 tile_mod)
+            if profile_all or config.light_mode == "sweep" \
+                    and not config.point_light:
+                holder = types.SimpleNamespace(has_mesh=False, state=state,
+                                               config=config)
+                profile_frames(holder, cams, eyes, f"{what}; {smi_line}",
+                               frames=1, mesh=mesh)
+            else:
+                log(f"[sharded-settings] {what}: not profiled in this run "
+                    f"(python3 chip_smoke.py --profile-sharded-settings)")
+            del state, images, last
+        del single, start
+        torch.cuda.empty_cache()
+        log(f"[sharded-settings] {setting}: {time.time() - t_setting:.1f} s")
+    check(launches is not None, "the un-bucketed tile setting was not "
+          "driven on volume shards")
+    return results, launches
+
+
+def unbucketed_shard_rows(what, calls, mesh, config, sweep_mod, sweep_ops,
+                          tile_mod):
+    """The un-bucketed sharded frame's kernels against their plain
+    versions: each volume shard's one B1 launch (N / D volumes at S,
+    `flip_tol`) and the lower row band of B2 on the unsorted maps, with
+    the two bands against the unbanded launch, bit for bit."""
+    import torch
+
+    nd = mesh.n_volumes_axis
+    nl, s = config.num_volumes // nd, config.cube_map_size
+    marches = calls["sweep_march*"]
+    check(len(marches) == nd and all(
+        a[2].shape[0] == nl and a[8] == s
+        and a[7] == (config.sweep_planes or s) for a, _k in marches),
+        f"{what}: B1 launches {[(a[2].shape[0], a[8]) for a, _k in marches]}"
+        f" (one of {nl} volumes at S={s} per shard expected)")
+    rows = []
+    for d, (a, k) in enumerate(marches):
+        k = {n: x for n, x in k.items() if n != "impl"}
+        info = sweep_ops.sweep_launch_info(
+            a[8], a[7], a[0].shape[1], a[1].shape[1],
+            a[0].dtype == torch.bfloat16)
+        log(f"[occupancy] sweep@unbucketed-shard-d{d}: {info}")
+        name = f"sweep@unbucketed-shard-d{d}"
+        rows.append(compare_kernel(
+            name, sweep_mod.sweep_march, a, k, flip_tol(a, k, name),
+            bound_sweep, reps=(10, 1), device_kernel="sweep_kernel"))
+    (a0, k0), (a1, k1) = calls["tile_composite*"][-2:]
+    k0, k1 = ({n: x for n, x in k.items() if n != "impl"} for k in (k0, k1))
+    check(k0["tile_row0"] == 0 and k1["tile_row0"] > 0
+          and k1.get("depth_sel") is None, f"{what}: the band calls")
+    check(a1[0].dtype == torch.float32
+          and a1[0].shape[0] == config.num_volumes,
+          f"{what}: B2 band maps {a1[0].dtype} {tuple(a1[0].shape)}")
+    # B2's limit (the `composite` row's), and beside it the bf16 band
+    # row's 1e-4 + 1e-4 rel on all but a share of 5e-5 of the elements,
+    # each within 2e-4: on this frame one pixel column (27 alpha values,
+    # 1.2e-5 of the band) parts by up to 1.5e-4, the kernel and the plain
+    # version either side of the plain version in f64, each within 1.1e-4
+    # of it, on these f32 maps as on the maps rounded to bf16
+    # (`tools/sweep_outliers.py --sharded`)
+    limits = (image_tol(3e-3, 99.5, 3e-2, "composite@band-unsorted"),
+              allclose_tol(1e-4, 1e-4, "composite@band-unsorted",
+                           outlier_share=5e-5, outlier_max=2e-4))
+    rows.append(compare_kernel(
+        "composite@band-unsorted", tile_mod.tile_composite, a1, k1,
+        lambda g, w: max(t(g, w) for t in limits), bound_composite,
+        reps=(10, 1), device_kernel=COMPOSITE_KERNELS))
+    banded = torch.cat([tile_mod.tile_composite(*a, **k, impl="kernel")
+                        for a, k in ((a0, k0), (a1, k1))], 1)
+    whole = tile_mod.tile_composite(
+        a0[0], *(torch.cat([x, y]) for x, y in zip(a0[1:4], a1[1:4])),
+        *a0[4:], impl="kernel")
+    check(tuple(banded.shape) == tuple(whole.shape)
+          and torch.equal(banded, whole),
+          f"{what}: the B2 bands on the unsorted maps differ from the "
+          f"unbanded launch")
+    log(f"[sharded-settings] {what}: the two B2 bands on the unsorted maps "
+        f"equal the unbanded launch ({tuple(whole.shape)}) bit for bit")
+    return rows
 
 
 def phase_raster_bin(dev):

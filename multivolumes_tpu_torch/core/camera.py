@@ -2,8 +2,9 @@
 
 Counterpart of `multivolumes_tpu/core/camera.py`: initial eye (4, 16, -80)
 looking at the origin, perspective fov pi/4 with zNear 1 / zFar 1000, and
-the orbit animation `eye = (sin(t/2)*60, 6, cos(t/2)*60)`. The cameras
-are made on the card unless `device` says otherwise.
+the orbit animation `eye = (sin(t/2)*60, 6, cos(t/2)*60)`, and
+`band_camera`, the off-centre projection of one row band of a frame. The
+cameras are made on the card unless `device` says otherwise.
 """
 
 from __future__ import annotations
@@ -41,6 +42,23 @@ def make_camera(eye, focus, aspect: float,
     proj = math3d.perspective_fov_lh(fov_y, aspect, z_near, z_far,
                                      device=eye.device)
     return Camera(eye=eye, view=view, proj=proj)
+
+
+def band_camera(camera: Camera, k: int, bands: int) -> Camera:
+    """Off-centre projection for horizontal row band k of `bands`: a frame
+    rendered at height H / bands with this camera holds rows [k H / bands,
+    (k + 1) H / bands) of the full frame, at the same pixel centres. The
+    projection is post-multiplied by a clip-space y scale and offset,
+    y' = s y + (1 - s + 2 k) w with s = bands, so band row j lands on the
+    NDC y of full-frame row k H / bands + j."""
+    s = float(bands)
+    band = torch.tensor(
+        [[1.0, 0.0, 0.0, 0.0],
+         [0.0, s, 0.0, 0.0],
+         [0.0, 0.0, 1.0, 0.0],
+         [0.0, 1.0 - s + 2.0 * k, 0.0, 1.0]], dtype=torch.float32,
+        device=camera.proj.device)
+    return Camera(eye=camera.eye, view=camera.view, proj=camera.proj @ band)
 
 
 def default_camera(aspect: float, device="cuda") -> Camera:

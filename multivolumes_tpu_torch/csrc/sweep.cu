@@ -18,7 +18,12 @@
 // in the density (a sample counts only where rho > 0.01), so a density
 // one bf16 step off can flip a sample and move a texel by several
 // percent: pure f32 lerps put 914 of 1.5M demo-frame texels outside the
-// twin's tolerance (H100 run). The six face orientations are not stored:
+// twin's tolerance (H100 run). The coordinates the weights come from are
+// computed without contraction (`grid_coord`, `crossing`), so each weight
+// rounds from the plain version's f32 value: contracted, they left 115
+// rays of a 64-volume S = 128 frame beyond that tolerance (H100, 700 W;
+// `tools/sweep_outliers.py --sharded`), none after. The six face
+// orientations are not stored:
 // each face addresses the plain channel-last stack through its variant
 // permutation and flips (FACE_VARIANT, FACE_FLIPS in ops/sweep.py).
 //
@@ -247,11 +252,27 @@ __device__ __forceinline__ float4 trilerp(
   return acc;
 }
 
+// Where a sample lies: the plane depth, the ray's crossing and the grid
+// coordinate are rounded after every operation, in the plain version's
+// order, never contracted into a fused multiply-add. They feed weights
+// rounded to bf16, and an ulp of the coordinate can move such a weight
+// one bf16 step, which changes a composited sample by about 0.5% and
+// can flip the density test (ROADMAP.md section C).
+// grid coordinate (p * 0.5 + 0.5) * n - 0.5 of p in [-1, 1]
+__device__ __forceinline__ float grid_coord(float p, int n) {
+  return __fsub_rn(__fmul_rn(__fadd_rn(__fmul_rn(p, 0.5f), 0.5f), (float)n),
+                   0.5f);
+}
+// the crossing e + sk (g - e) of the ray through texel centre g
+__device__ __forceinline__ float crossing(float e, float sk, float g) {
+  return __fadd_rn(e, __fmul_rn(sk, __fsub_rn(g, e)));
+}
+
 // slab pair and weight of plane depth wk (sweep_batched's slab_block,
 // including its clamp of z1 = z0 + 1 below the first slab)
 __device__ __forceinline__ void slab_pair(float wk, int n, float zf, int* z0,
                                           int* z1, float* fz) {
-  float zc = (wk * 0.5f + 0.5f) * n - 0.5f;
+  float zc = grid_coord(wk, n);
   zc = zc + zf * ((n - 1.0f) - 2.0f * zc);
   float fl = floorf(zc);
   *z0 = min(max((int)fl, 0), n - 1);
@@ -260,7 +281,7 @@ __device__ __forceinline__ void slab_pair(float wk, int n, float zf, int* z0,
 }
 
 __device__ __forceinline__ float lateral(float p, int n, float flip) {
-  float c = mv::clampf((p * 0.5f + 0.5f) * n - 0.5f, 0.0f, n - 1.0f);
+  float c = mv::clampf(grid_coord(p, n), 0.0f, n - 1.0f);
   return c + flip * ((n - 1.0f) - 2.0f * c);
 }
 
@@ -274,14 +295,14 @@ __device__ __forceinline__ float texel_u(int j, float n_eff) {
 // e + sk (g - e) is monotone in the ray index and `lateral` clamps, then
 // mirrors, so the end rays bound it. In f32 each of the half dozen
 // operations on the way can break the order of two rays by an ulp of the
-// coordinate (6e-5 at n = 1024), whichever way the compiler contracts
-// them; kRectPad covers that, so every ray's taps lie inside the span and
-// no ray needs a test of its own (`stages` refuses larger grids).
+// coordinate (6e-5 at n = 1024); kRectPad covers that, so every ray's
+// taps lie inside the span and no ray needs a test of its own (`stages`
+// refuses larger grids).
 __device__ __forceinline__ void axis_span(float e, float sk, float g_lo,
                                           float g_hi, int n, float flip,
                                           int* t_lo, int* t_hi) {
-  const float a = lateral(e + sk * (g_lo - e), n, flip);
-  const float b = lateral(e + sk * (g_hi - e), n, flip);
+  const float a = lateral(crossing(e, sk, g_lo), n, flip);
+  const float b = lateral(crossing(e, sk, g_hi), n, flip);
   *t_lo = max((int)floorf(fminf(a, b) - kRectPad), 0);
   *t_hi = min((int)floorf(fmaxf(a, b) + kRectPad) + 1, n - 1);
 }
@@ -456,7 +477,8 @@ sweep_kernel(
   // it marches by the direct fetch alone, with no barrier per plane.
   for (int k = kb_lo + tid; k <= kb_hi; k += kThreads) {
     PlaneRec p;
-    const float wk = fc.ew_c + ((float)k + 0.5f) * fc.delta;
+    const float wk = __fadd_rn(fc.ew_c,
+                               __fmul_rn((float)k + 0.5f, fc.delta));
     float fz, fl;
     p.sk = (wk - fc.ew) * fc.inv_gz;
     slab_pair(wk, n, fc.zf, &p.z0, &p.z1, &fz);
@@ -536,7 +558,7 @@ sweep_kernel(
         const float eye = ax ? fc.ev : fc.eu;
         const float coord = ax ? -texel_u(i0 + idx, fc.n_eff)
                                : texel_u(j0 + idx, fc.n_eff);
-        const float c = lateral(eye + recs[k2].sk * (coord - eye), nn,
+        const float c = lateral(crossing(eye, recs[k2].sk, coord), nn,
                                 ax ? fc.vf : fc.uf);
         Tap t;
         t.t0 = tent<T>(c, nn, &t.w0, &t.w1);

@@ -98,26 +98,27 @@ def tile_composite_plain(color, scene, tlist, counts, vol_flt, face_flt,
                          th: int, tw: int, tiles_x: int, k_layers: int,
                          width: int, height: int, depth_sel=None,
                          tile_row0: int = 0):
-    """Plain version of B2 (see the module docstring)."""
+    """Plain version of B2 (see the module docstring), in the dtype of
+    `scene` (f32; f64 to judge the f32 forms)."""
     hp, wp = scene.shape
     s = color.shape[-1]
-    dev = scene.device
+    dev, ft = scene.device, scene.dtype
     rows = torch.arange(hp, device=dev)
     cols = torch.arange(wp, device=dev)
-    xg = ((cols.float() + 0.5) / width * 2.0 - 1.0)[None, :].expand(hp, wp)
-    yg = (-(((rows + tile_row0 * th).float() + 0.5) / height * 2.0
+    xg = ((cols.to(ft) + 0.5) / width * 2.0 - 1.0)[None, :].expand(hp, wp)
+    yg = (-(((rows + tile_row0 * th).to(ft) + 0.5) / height * 2.0
             - 1.0))[:, None].expand(hp, wp)
     tile = (rows // th)[:, None] * tiles_x + (cols // tw)[None, :]
     cnt = counts.long()[tile]
-    img = color.float()
+    img = color.to(ft)
     if depth_sel is not None:
         on_mesh = mesh_tiles(scene, th, tw).repeat_interleave(
             th, 0).repeat_interleave(tw, 1)
         zn, zf = SharedConsts.Z_NEAR, SharedConsts.Z_FAR
         d_scene = (zn * zf) / (scene * (zn - zf) + zf)
 
-    lz = torch.full((k_layers, hp, wp), FLT_MAX, device=dev)
-    lc = torch.zeros((4, k_layers, hp, wp), device=dev)
+    lz = torch.full((k_layers, hp, wp), FLT_MAX, dtype=ft, device=dev)
+    lc = torch.zeros((4, k_layers, hp, wp), dtype=ft, device=dev)
     for i in range(int(counts.max()) if counts.numel() else 0):
         vid = tlist.long()[tile, i]                        # (Hp, Wp)
         vf = vol_flt[vid]                                  # (Hp, Wp, 21)
@@ -154,9 +155,9 @@ def tile_composite_plain(color, scene, tlist, counts, vol_flt, face_flt,
                                   + fq[..., 5]) / _safe(dq)), min=0.0)
         vt = torch.minimum(vt, hi)
         v0 = torch.floor(vt)
-        rgba = torch.zeros((4, hp, wp), device=dev)
-        rgba_d = torch.zeros((4, hp, wp), device=dev)
-        w_sum = torch.zeros((hp, wp), device=dev)
+        rgba = torch.zeros((4, hp, wp), dtype=ft, device=dev)
+        rgba_d = torch.zeros((4, hp, wp), dtype=ft, device=dev)
+        w_sum = torch.zeros((hp, wp), dtype=ft, device=dev)
         for v in (v0, v0 + 1.0):
             wv = torch.clamp(1.0 - (vt - v).abs(), min=0.0)
             wv = torch.where(v <= hi, wv, 0.0)
@@ -170,8 +171,8 @@ def tile_composite_plain(color, scene, tlist, counts, vol_flt, face_flt,
             cu = torch.minimum(cu, hi)
             u0 = torch.floor(cu)
             vi = torch.clamp(v.long(), 0, s - 1)
-            row = torch.zeros((4, hp, wp), device=dev)
-            d_row = torch.zeros((hp, wp), device=dev)
+            row = torch.zeros((4, hp, wp), dtype=ft, device=dev)
+            d_row = torch.zeros((hp, wp), dtype=ft, device=dev)
             for u in (u0, u0 + 1.0):
                 wu = torch.clamp(1.0 - (cu - u).abs(), min=0.0)
                 ui = torch.clamp(u.long(), 0, s - 1)
@@ -201,7 +202,7 @@ def tile_composite_plain(color, scene, tlist, counts, vol_flt, face_flt,
             zn = torch.where(take, z_k, zn)
             cn = torch.where(take, c_k, cn)
 
-    acc = torch.zeros((4, hp, wp), device=dev)
+    acc = torch.zeros((4, hp, wp), dtype=ft, device=dev)
     for k in range(k_layers):
         acc = acc + lc[:, k] * (1.0 - acc[3])
     acc[3] = torch.clamp(acc[3], max=0.9997)

@@ -35,7 +35,8 @@ With a device mesh (`render_frame(..., mesh=mesh)`, the state a
 frame step: the sweep split over the mesh's volume axis, the composite
 and the TAA resolve over its row axis where it has one, the opaque
 mesh's raster and shade over its row axis too, everything else
-replicated, once per physical device (`_render_frame_sharded`).
+replicated, once per physical device (`_render_frame_sharded`), in every
+setting above.
 """
 
 from __future__ import annotations
@@ -67,17 +68,11 @@ class FrameOutput(NamedTuple):
     state: SceneState
 
 
-# the settings of the main path, the only ones the sharded step runs
-_SHARDED_DEFAULTS = dict(march_mode="sweep", light_mode="sweep",
-                         point_light=False, adaptive_raymarch=True)
-
-
 def check_supported(config: RenderConfig, sharded: bool = False) -> None:
-    """Raise for settings the JAX package does not have either, and, with
-    `sharded`, for those the sharded frame step does not run yet: the
-    reference modes, point lights, the warp and gather composites and the
-    un-bucketed sweep (a queue entry in ROADMAP.md). The opaque mesh runs
-    in both, on any device mesh."""
+    """Raise for settings the JAX package does not have either. The
+    sharded frame step runs every setting the unsharded frame runs, with
+    or without the opaque mesh, so `sharded` changes nothing."""
+    del sharded
     bad = []
     if config.march_mode not in ("sweep", "reference"):
         bad.append(f"march_mode={config.march_mode!r}")
@@ -87,20 +82,6 @@ def check_supported(config: RenderConfig, sharded: bool = False) -> None:
         bad.append(f"composite_mode={config.composite_mode!r}")
     if bad:
         raise ValueError("unknown setting: " + ", ".join(bad))
-    if not sharded:
-        return
-    missing = [f"{k}={getattr(config, k)!r}"
-               for k, v in _SHARDED_DEFAULTS.items()
-               if getattr(config, k) != v]
-    if config.composite_mode not in ("auto", "tile"):
-        missing.append(f"composite_mode={config.composite_mode!r}")
-    if config.lod_bucket_caps is None:
-        missing.append("lod_bucket_caps=None")
-    if missing:
-        raise NotImplementedError(
-            "the sharded frame step of multivolumes_tpu_torch runs the main "
-            "path's settings only, not " + ", ".join(missing)
-            + " (see ROADMAP.md)")
 
 
 def render_frame(state: SceneState, camera: Camera, config: RenderConfig,
@@ -115,7 +96,7 @@ def render_frame(state: SceneState, camera: Camera, config: RenderConfig,
     at the end. With `mesh` (a `parallel.collectives.DeviceMesh`), `state`
     is a `ShardedState` on that mesh and so is the returned state; the
     image and hdr are assembled on `mesh.root`."""
-    check_supported(config, sharded=mesh is not None)
+    check_supported(config)
     width, height = config.width, config.height
     mark = timer if timer is not None else (lambda name: None)
     show_mesh = config.show_mesh if show_mesh is None else show_mesh
@@ -244,31 +225,15 @@ def render_frame(state: SceneState, camera: Camera, config: RenderConfig,
     # --- OIT composite over the background ------------------------------
     mark("composite")
     cw, ch = _composite_size(config, has_mesh)
-    if use_tile:
-        vr, vg, vb, va = tilecast.composite_oit_tile(
-            cube_maps, per_object, cull_for_composite, eye,
-            screen_to_world, cw, ch, num_layers=config.oit_layers,
-            order=order, swap_sorted=swap, depth_map=depth_map, impl=impl)
-    elif use_warp:
-        tile = config.warp_tile
-        if tile is None:
-            tile = 512 if n <= 8 else 384
-        vr, vg, vb, va = warp_lib.composite_oit_warp(
-            cube_maps, per_object, cull_for_composite, eye, screen_to_world,
-            depth_map, cw, ch, num_layers=config.oit_layers, tile=tile,
-            lod_order=lod_order, lod_buckets=lod_buckets)
-    else:
-        vr, vg, vb, va = composite_lib.composite_oit(
-            cube_maps, state.volumes, state.vol_tex_ids,
-            state.light_maps.movedim(1, -1), per_object, cull_for_composite,
-            eye, screen_to_world, depth_map, cw, ch,
-            config.max_ray_samples, num_layers=config.oit_layers,
-            adaptive=config.adaptive_raymarch, use_raycast=use_raycast,
-            has_depth=has_mesh)
+    volumes = _composite(
+        config, use_tile, use_warp, use_raycast, has_mesh, cube_maps,
+        per_object, cull_for_composite, eye, screen_to_world, depth_map, cw,
+        ch, order, swap, lod_order, lod_buckets, state.volumes,
+        state.vol_tex_ids, state.light_maps, impl)
 
     mark("tail")
-    sc = _blend_background((vr, vg, vb, va), (bg_r, bg_g, bg_b), width,
-                           height, mesh_out)
+    sc = _blend_background(volumes, (bg_r, bg_g, bg_b), width, height,
+                           mesh_out)
 
     image, hdr, new_history = _resolve_and_map(
         sc, state.taa_history, config, use_taa, planar, impl, mark,
@@ -292,6 +257,40 @@ def _cohort(config: RenderConfig, frame_idx: int, device=None):
     if device is None:
         return [(frame_idx * c + i) % n for i in range(c)]
     return (frame_idx * c + torch.arange(c, device=device)) % n
+
+
+def _composite(config: RenderConfig, use_tile: bool, use_warp: bool,
+               use_raycast: bool, has_mesh: bool, cube_maps, per_object, cull,
+               eye, screen_to_world, depth_map, cw: int, ch: int, order, swap,
+               lod_order, lod_buckets, volumes, vol_tex_ids, light_maps, impl):
+    """The OIT composite of one device at (cw, ch) -> (r, g, b, a): the
+    screen-tile kernel (`use_tile`), the tile warps (`use_warp`), else the
+    per-pixel CubeCast, which marches through `light_maps` (N, 4, L, L, L)
+    where the reference march made the maps (`use_raycast`)."""
+    if use_tile:
+        return tilecast.composite_oit_tile(
+            cube_maps, per_object, cull, eye, screen_to_world, cw, ch,
+            num_layers=config.oit_layers, order=order, swap_sorted=swap,
+            depth_map=depth_map, impl=impl)
+    if use_warp:
+        return warp_lib.composite_oit_warp(
+            cube_maps, per_object, cull, eye, screen_to_world, depth_map, cw,
+            ch, num_layers=config.oit_layers, tile=_warp_tile(config),
+            lod_order=lod_order, lod_buckets=lod_buckets)
+    return composite_lib.composite_oit(
+        cube_maps, volumes, vol_tex_ids,
+        None if light_maps is None else light_maps.movedim(1, -1),
+        per_object, cull, eye, screen_to_world, depth_map, cw, ch,
+        config.max_ray_samples, num_layers=config.oit_layers,
+        adaptive=config.adaptive_raymarch, use_raycast=use_raycast,
+        has_depth=has_mesh)
+
+
+def _warp_tile(config: RenderConfig) -> int:
+    """The warp composite's tile (`config.warp_tile`, else by scene size)."""
+    if config.warp_tile is not None:
+        return config.warp_tile
+    return 512 if config.num_volumes <= 8 else 384
 
 
 def _composite_size(config: RenderConfig, has_mesh: bool):
@@ -375,7 +374,8 @@ def _render_frame_sharded(sharded, camera: Camera, config: RenderConfig,
       device, on the all-gathered world matrices; the refresh writes a
       replicated light stack once per physical device (logical shards of
       one device alias it), and under `shard_light_stacks` only the owner
-      shard of each cohort volume writes its local row;
+      shard of each refreshed volume changes its local row (the sweep
+      light's cohort, or the reference light's one volume a frame);
     * with an opaque mesh its pass runs before the light: on a rows axis
       the raster and the shade in row bands, the depth map all-gathered
       onto every device and the shaded fields onto the root
@@ -385,11 +385,16 @@ def _render_frame_sharded(sharded, camera: Camera, config: RenderConfig,
       depth variant, in row bands on a rows axis), it is the background
       of the volumes, and its velocity reprojects the TAA history on the
       root (windowed under the far preset) before the resolve;
-    * the sweep runs per index of the volume axis, and its cube maps are
-      all-gathered (the one large movement of the frame);
+    * the cube-map march runs per index of the volume axis (the LOD
+      sweep with the caps divided by the shards, the un-bucketed sweep in
+      one B1 launch a shard, or the reference march), and its cube maps
+      are all-gathered (the one large movement of the frame);
     * without a rows axis the screen passes (sky, composite, tail, TAA,
-      tone map) run replicated too; with one, the composite and the TAA
-      resolve run one row band per device and the rest on `mesh.root`.
+      tone map) run replicated too; with one, the tile composite and the
+      TAA resolve run one row band per device and the rest on
+      `mesh.root`, the warp and gather composites included (the gather
+      composite of the reference march reads the whole light stack,
+      all-gathered there under `shard_light_stacks`).
     """
     from multivolumes_tpu_torch.parallel import collectives as coll
 
@@ -438,61 +443,89 @@ def _render_frame_sharded(sharded, camera: Camera, config: RenderConfig,
         depth_map = {dev: m.depth for dev, m in mesh_out.items()}
 
     mark("light")
-    ids_host = _cohort(config, frame_idx)
-    nl = config.num_volumes // nd
-    axis = (config.light_axis if config.light_axis is not None
-            else lightsweep.light_axis(rep[root].light_pos))
     shard_light = sharded.shard_light
-    if shard_light:
-        sout_all = coll.all_gather([s.light_sout for s in by_d], 0, mesh,
-                                   "light_sout")
-    for dev in mesh.physical:
-        st = rep[dev]
-        ids = _cohort(config, frame_idx, dev)
-        maps_c, sout = lightsweep.ray_march_light_sweep_update(
-            st.rho_light, st.ao_static, st.grad_dir, tex_ids[dev],
-            per_object[dev], st.light_pos, st.light_color, st.ambient,
-            st.sh_coeffs, config.max_light_samples, axis,
-            has_light_probe=config.has_light_probe, sub_ids=ids,
-            sout_cache=sout_all[dev] if shard_light else st.light_sout,
-            impl=impl,
-            shadow_map=mesh_out[dev].shadow if has_mesh else None,
-            shadow_vp=mesh_out[dev].shadow_vp if has_mesh else None)
-        if not shard_light:
-            st.light_maps[ids] = maps_c.to(st.light_maps.dtype)
-            st.light_sweep[ids] = to_light_sweep(maps_c,
-                                                 st.light_sweep.dtype)
-            continue
-        for d, loc in hosted[dev].items():
-            own = [i for i, v in enumerate(ids_host) if v // nl == d]
-            if not own:
-                continue
-            pick = torch.tensor(own, device=dev)
-            at = ids[pick] - d * nl
-            loc.light_maps[at] = maps_c[pick].to(loc.light_maps.dtype)
-            loc.light_sweep[at] = to_light_sweep(maps_c[pick],
-                                                 loc.light_sweep.dtype)
-            loc.light_sout[at] = sout[ids[pick]]
+    if config.light_mode == "sweep" and not config.point_light:
+        _sweep_light_sharded(config, mesh, rep, hosted, by_d, tex_ids,
+                             per_object, mesh_out, shard_light, impl)
+    else:
+        _reference_light_sharded(config, mesh, rep, hosted, tex_ids,
+                                 per_object, cull, mesh_out, shard_light)
 
     mark("sweep")
-    swap_basis = {dev: warp_lib.screen_basis(screen_to_world[dev], eye[dev])
-                  for dev in mesh.physical}
-    lod_cull = {dev: c._replace(use_cube_map=c.visible)
-                for dev, c in cull.items()}
-    swept = sweep_lib.ray_march_view_sweep_lod_sharded(
-        mesh, {dev: st.volumes_sweep for dev, st in rep.items()},
-        [s.vol_tex_ids for s in by_d],
-        ([s.light_sweep for s in by_d] if shard_light
-         else {dev: st.light_sweep for dev, st in rep.items()}),
-        per_object, lod_cull, eye, config.cube_map_size, swap_basis,
-        bucket_caps=config.lod_bucket_caps,
-        vol_zmax={dev: st.vol_zmax for dev, st in rep.items()}, impl=impl,
-        light_sharded=shard_light, depth_map=depth_map)
-    cull_c = {dev: c._replace(mip_level=swept[dev].mips,
-                              use_cube_map=c.visible)
-              for dev, c in cull.items()}
+    n, s = config.num_volumes, config.cube_map_size
+    use_raycast = config.march_mode != "sweep"
+    use_warp = (not use_raycast
+                and config.composite_mode in ("auto", "warp", "tile"))
+    use_tile = use_warp and config.composite_mode in ("auto", "tile")
+    reps = lambda name: {dev: getattr(st, name)              # noqa: E731
+                         for dev, st in rep.items()}
+    # the shards' light stacks: their own under shard_light, else their
+    # rows of the replicated stack
+    light_sweep = ([b.light_sweep for b in by_d] if shard_light
+                   else reps("light_sweep"))
+    order = swap = lod_order = lod_buckets = None
+    if use_raycast:
+        # the reference march per volume shard, on its rows of the light
+        # maps (channel-last) and of the global cull
+        def march(dev, d, rows):
+            maps = (by_d[d].light_maps if shard_light
+                    else rep[dev].light_maps[rows])
+            return raymarch.ray_march_view(
+                rep[dev].volumes, by_d[d].vol_tex_ids, maps.movedim(1, -1),
+                per_object[dev].take(rows), cull[dev].take(rows), eye[dev],
+                None if depth_map is None else depth_map[dev], s,
+                config.max_ray_samples, adaptive=config.adaptive_raymarch)
+
+        cube_maps = sweep_lib.march_volume_shards(mesh, n, march,
+                                                  depth_map is not None)
+        cull_c = cull
+    elif config.lod_bucket_caps is not None and config.adaptive_raymarch:
+        lod_cull = {dev: c._replace(use_cube_map=c.visible)
+                    for dev, c in cull.items()}
+        swept = sweep_lib.ray_march_view_sweep_lod_sharded(
+            mesh, reps("volumes_sweep"), [b.vol_tex_ids for b in by_d],
+            light_sweep, per_object, lod_cull, eye, s,
+            {dev: warp_lib.screen_basis(screen_to_world[dev], eye[dev])
+             for dev in mesh.physical} if use_tile else None,
+            bucket_caps=config.lod_bucket_caps, vol_zmax=reps("vol_zmax"),
+            impl=impl, light_sharded=shard_light, depth_map=depth_map,
+            sorted_output=use_tile, pack=not use_warp)
+        cube_maps = {dev: sw.cube_maps for dev, sw in swept.items()}
+        cull_c = {dev: c._replace(mip_level=swept[dev].mips,
+                                  use_cube_map=c.visible)
+                  for dev, c in cull.items()}
+        if use_tile:
+            order = {dev: sw.order for dev, sw in swept.items()}
+            swap = {dev: sw.swap for dev, sw in swept.items()}
+        else:
+            # the warp's footprint classes from the global cull and caps,
+            # as in the JAX frame (a shard's divided caps may have marched
+            # a volume at another mip: ROADMAP.md section C)
+            lod_order, lod_buckets = {}, None
+            for dev in mesh.physical:
+                lod_order[dev], lod_buckets = sweep_lib.lod_partition(
+                    lod_cull[dev], n, s, config.lod_bucket_caps)
+    else:
+        # every volume at full resolution, one B1 launch per volume shard
+        cull_c = {dev: c._replace(mip_level=torch.zeros_like(c.mip_level),
+                                  use_cube_map=c.visible)
+                  for dev, c in cull.items()}
+        cube_maps = sweep_lib.ray_march_view_sweep_sharded(
+            mesh, reps("volumes_sweep"), [b.vol_tex_ids for b in by_d],
+            light_sweep, per_object, cull_c, eye, depth_map, s,
+            num_planes=config.sweep_planes, vol_zmax=reps("vol_zmax"),
+            impl=impl, light_sharded=shard_light,
+            pack=config.packed_composite and not use_warp)
 
     cw, ch = _composite_size(config, has_mesh)
+    light_maps = None
+    if not use_warp and use_raycast:
+        # the gather composite marches its per-pixel layers through the
+        # whole light stack: gathered where the composite runs
+        light_maps = (coll.all_gather(
+            [b.light_maps for b in by_d], 0, mesh, "light_maps",
+            devices=(root,) if has_rows else None)
+            if shard_light else reps("light_maps"))
     new_history = {}
     # the screen passes: replicated without a rows axis, else on the root
     for dev in ((root,) if has_rows else mesh.physical):
@@ -501,24 +534,24 @@ def _render_frame_sharded(sharded, camera: Camera, config: RenderConfig,
             rep[dev].radiance, screen_to_world[dev], eye[dev], width, height,
             scale=config.sky_scale)
         mark("composite")
-        if has_rows:
+        if use_tile and has_rows:
             volumes = tilecast.composite_oit_tile_sharded(
-                mesh, {k: v.cube_maps for k, v in swept.items()}, per_object,
-                cull_c, eye, screen_to_world, cw, ch,
-                num_layers=config.oit_layers,
-                order={k: v.order for k, v in swept.items()},
-                swap_sorted={k: v.swap for k, v in swept.items()},
-                depth_map=depth_map, impl=impl)
+                mesh, cube_maps, per_object, cull_c, eye, screen_to_world,
+                cw, ch, num_layers=config.oit_layers, order=order,
+                swap_sorted=swap, depth_map=depth_map, impl=impl)
+        else:
+            at = lambda x: None if x is None else x[dev]     # noqa: E731
+            volumes = _composite(
+                config, use_tile, use_warp, use_raycast, has_mesh,
+                cube_maps[dev], per_object[dev], cull_c[dev], eye[dev],
+                screen_to_world[dev], at(depth_map), cw, ch, at(order),
+                at(swap), at(lod_order), lod_buckets, rep[dev].volumes,
+                tex_ids[dev], at(light_maps), impl)
+        if has_rows:
             history = coll.all_gather(
                 [sharded.local(r, 0).taa_history for r in range(rows)], 1,
                 mesh, "taa_history", devices=(root,))[root]
         else:
-            volumes = tilecast.composite_oit_tile(
-                swept[dev].cube_maps, per_object[dev], cull_c[dev], eye[dev],
-                screen_to_world[dev], cw, ch, num_layers=config.oit_layers,
-                order=swept[dev].order, swap_sorted=swept[dev].swap,
-                depth_map=None if depth_map is None else depth_map[dev],
-                impl=impl)
             history = rep[dev].taa_history
         mark("tail")
         sc = _blend_background(volumes, sky, width, height, mesh_out[dev])
@@ -547,6 +580,85 @@ def _render_frame_sharded(sharded, camera: Camera, config: RenderConfig,
     return FrameOutput(image=image, hdr=hdr,
                        state=dataclasses.replace(sharded,
                                                  locals=tuple(locals_)))
+
+
+def _sweep_light_sharded(config, mesh, rep, hosted, by_d, tex_ids,
+                         per_object, mesh_out, shard_light: bool, impl):
+    """The sweep light's cohort refresh (B3 / B4) of the sharded step, once
+    per physical device on the gathered worlds and texture ids: it writes
+    a replicated stack once a device, or under `shard_light` each hosted
+    shard's own rows of the cohort (the cohort ids are host arithmetic)."""
+    from multivolumes_tpu_torch.parallel import collectives as coll
+
+    frame_idx = by_d[0].frame_idx
+    ids_host = _cohort(config, frame_idx)
+    nl = config.num_volumes // mesh.n_volumes_axis
+    axis = (config.light_axis if config.light_axis is not None
+            else lightsweep.light_axis(rep[mesh.root].light_pos))
+    if shard_light:
+        sout_all = coll.all_gather([s.light_sout for s in by_d], 0, mesh,
+                                   "light_sout")
+    for dev in mesh.physical:
+        st, m_out = rep[dev], mesh_out[dev]
+        ids = _cohort(config, frame_idx, dev)
+        maps_c, sout = lightsweep.ray_march_light_sweep_update(
+            st.rho_light, st.ao_static, st.grad_dir, tex_ids[dev],
+            per_object[dev], st.light_pos, st.light_color, st.ambient,
+            st.sh_coeffs, config.max_light_samples, axis,
+            has_light_probe=config.has_light_probe, sub_ids=ids,
+            sout_cache=sout_all[dev] if shard_light else st.light_sout,
+            impl=impl,
+            shadow_map=None if m_out is None else m_out.shadow,
+            shadow_vp=None if m_out is None else m_out.shadow_vp)
+        if not shard_light:
+            st.light_maps[ids] = maps_c.to(st.light_maps.dtype)
+            st.light_sweep[ids] = to_light_sweep(maps_c,
+                                                 st.light_sweep.dtype)
+            continue
+        for d, loc in hosted[dev].items():
+            own = [i for i, v in enumerate(ids_host) if v // nl == d]
+            if not own:
+                continue
+            pick = torch.tensor(own, device=dev)
+            at = ids[pick] - d * nl
+            loc.light_maps[at] = maps_c[pick].to(loc.light_maps.dtype)
+            loc.light_sweep[at] = to_light_sweep(maps_c[pick],
+                                                 loc.light_sweep.dtype)
+            loc.light_sout[at] = sout[ids[pick]]
+
+
+def _reference_light_sharded(config, mesh, rep, hosted, tex_ids, per_object,
+                             cull, mesh_out, shard_light: bool):
+    """The reference light of the sharded step (the gather march of one
+    volume a frame, `lightmarch.march_light_map`), once per physical
+    device on the gathered worlds and the global cull. Under
+    `shard_light` every hosted shard writes its row at the volume's local
+    index, the new map where it owns the volume and its own row
+    elsewhere: a masked write, so the owner needs no host read of the
+    volume id."""
+    nl = config.num_volumes // mesh.n_volumes_axis
+    frame_idx = rep[mesh.root].frame_idx
+    for dev in mesh.physical:
+        st, m_out = rep[dev], mesh_out[dev]
+        vid, new_map = lightmarch.march_light_map(
+            st.volumes, tex_ids[dev], per_object[dev], cull[dev], frame_idx,
+            None if m_out is None else m_out.shadow,
+            None if m_out is None else m_out.shadow_vp,
+            st.light_pos, st.light_color, st.ambient, st.sh_coeffs,
+            config.max_light_samples, config.light_grid_size,
+            has_light_probe=config.has_light_probe,
+            point_light=config.point_light)
+        targets = ([(st, vid, None)] if not shard_light else
+                   [(loc, torch.clamp(vid - d * nl, 0, nl - 1),
+                     vid[0] // nl == d) for d, loc in hosted[dev].items()])
+        for loc, at, own in targets:
+            row = new_map.to(loc.light_maps.dtype)[None]
+            row_sweep = to_light_sweep(row, loc.light_sweep.dtype)
+            if own is not None:
+                row = torch.where(own, row, loc.light_maps[at])
+                row_sweep = torch.where(own, row_sweep, loc.light_sweep[at])
+            loc.light_maps.index_copy_(0, at, row)
+            loc.light_sweep.index_copy_(0, at, row_sweep)
 
 
 def render_frames(state: SceneState, cameras: Sequence[Camera],

@@ -173,9 +173,31 @@ def ray_march_light(
     instead of along the directional light's one vector. `z_slab` marches
     only those rows of the grid (the same values, a fraction of the rays
     and memory per call)."""
-    n = vol_tex_ids.shape[0]
     l = light_maps.shape[-1]
-    dev = light_maps.device
+    z0, zc = (0, l) if z_slab is None else z_slab
+    vid, new_map = march_light_map(
+        volumes, vol_tex_ids, per_object, cull, frame_idx, shadow_map,
+        shadow_vp, light_pos, light_color, ambient, sh_coeffs,
+        max_light_samples, l, has_light_probe=has_light_probe,
+        point_light=point_light, z_slab=z_slab)
+    light_maps[:, :, z0:z0 + zc].index_copy_(
+        0, vid, new_map.to(light_maps.dtype)[None])
+    return light_maps
+
+
+def march_light_map(
+    volumes, vol_tex_ids, per_object, cull, frame_idx: int, shadow_map,
+    shadow_vp, light_pos, light_color, ambient, sh_coeffs,
+    max_light_samples: int, light_grid_size: int,
+    has_light_probe: bool = True, point_light: bool = False, z_slab=None,
+):
+    """The march of `ray_march_light` without the write -> (vid, the new
+    map (3, zc, L, L) f32): `vid` (1,) the volume it belongs to
+    (`select_update_volume`), on the device, so that a caller holding only
+    some rows of the stack can write it without a host read."""
+    n = vol_tex_ids.shape[0]
+    l = light_grid_size
+    dev = per_object.world.device
     vid = select_update_volume(cull.visible, frame_idx).reshape(1)
     step_scale = MAX_DIST / float(max_light_samples)
 
@@ -281,7 +303,5 @@ def ray_march_light(
                    for irr in (irr_r, irr_g, irr_b)]
     else:
         amb_rgb = [amb[c].expand(gshape) for c in range(3)]
-    new_map = torch.stack([shadow * lcol[c] + amb_rgb[c] for c in range(3)])
-    light_maps[:, :, z0:z0 + zc].index_copy_(
-        0, vid, new_map.to(light_maps.dtype)[None])
-    return light_maps
+    return vid, torch.stack([shadow * lcol[c] + amb_rgb[c]
+                             for c in range(3)])

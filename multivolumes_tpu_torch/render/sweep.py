@@ -3,8 +3,9 @@
 Counterpart of `multivolumes_tpu/render/sweep.py` (`eye_to_face_frames`,
 `face_ray_params`, `lod_partition`, `ray_march_view_sweep_lod` with its
 three output contracts, `ray_march_view_sweep`, the un-bucketed march of
-every volume at full resolution, and `ray_march_view_sweep_lod_sharded`,
-the LOD march split over the volume axis of a device mesh). The
+every volume at full resolution, and `ray_march_view_sweep_lod_sharded`
+and `ray_march_view_sweep_sharded`, the two split over the volume axis
+of a device mesh). The
 per-(volume, face) march itself is kernel B1 (`ops/sweep.py`); this
 module does the per-frame geometry around it: face frames, ray
 intervals, LOD buckets, the sorted assembly and the Catmull-Smith
@@ -437,13 +438,15 @@ def ray_march_view_sweep_lod_sharded(
     cull,               # replicated {device: CullResult}, all N rows
     eye,                # replicated {device: (3,)}
     cube_map_size: int,
-    swap_basis,         # replicated {device: (3, 3)}
+    swap_basis,         # replicated {device: (3, 3)}, or None
     bucket_caps=(8, 24, 1 << 30),
     vol_zmax=None,      # replicated, or None
     impl: str | None = None,
     light_sharded: bool = False,
     depth_map=None,     # replicated {device: (H, W)} scene clip depth, or
                         # None
+    sorted_output: bool = True,
+    pack: bool = False,
 ) -> dict:
     """The LOD sweep partitioned over the mesh's volume axis: shard d
     LOD-buckets and marches its own N / D volumes on `mesh.device(0, d)`
@@ -457,7 +460,11 @@ def ray_march_view_sweep_lod_sharded(
     slice) or, with `light_sharded`, sharded (each shard reads its own
     shard, so no stack ever moves). With `depth_map` (the mesh's, whole on
     every device), each shard's rays stop at the scene depth and its cube
-    depth is all-gathered with the maps, as in the unsharded sweep."""
+    depth is all-gathered with the maps, as in the unsharded sweep.
+    `sorted_output`, `pack` and a None `swap_basis` pick the output
+    contract as in `ray_march_view_sweep_lod` (the warp and gather
+    composites'): then the rows are in volume order and no order or flags
+    move."""
     from multivolumes_tpu_torch.parallel import collectives
 
     nd = mesh.n_volumes_axis
@@ -465,7 +472,7 @@ def ray_march_view_sweep_lod_sharded(
     n = nl * nd
     caps = tuple(c if c >= (1 << 20) else max(1, c // nd)
                  for c in bucket_caps)
-    parts = []
+    parts = {}
     for d in range(nd):
         dev = mesh.device(0, d)
         n_rows = per_object[dev].world.shape[0]
@@ -475,16 +482,100 @@ def ray_march_view_sweep_lod_sharded(
             volumes_sweep[dev], vol_tex_ids[d],
             light_sweep[d] if light_sharded else light_sweep[dev][rows],
             per_object[dev].take(rows), cull[dev].take(rows), eye[dev],
-            cube_map_size, swap_basis[dev], bucket_caps=caps,
+            cube_map_size, None if swap_basis is None else swap_basis[dev],
+            bucket_caps=caps,
             vol_zmax=None if vol_zmax is None else vol_zmax[dev], impl=impl,
-            depth_map=None if depth_map is None else depth_map[dev])
-        parts.append((out.cube_maps.color, out.mips, out.order + d * nl,
-                      out.swap) + (() if depth_map is None
-                                   else (out.cube_maps.depth,)))
-    color, mips, order, swap, *depth = (
-        collectives.all_gather(col, 0, mesh, name) for col, name in zip(
-            zip(*parts), ("cube_maps", "sweep_mips", "sweep_order",
-                          "sweep_swap", "cube_depth")))
+            depth_map=None if depth_map is None else depth_map[dev],
+            sorted_output=sorted_output, pack=pack)
+        for name, x in (("cube_maps", out.cube_maps.color),
+                        ("sweep_mips", out.mips),
+                        ("sweep_order", out.order + d * nl
+                         if sorted_output else None),
+                        ("sweep_swap", out.swap),
+                        ("cube_depth", out.cube_maps.depth)):
+            if x is not None:
+                parts.setdefault(name, []).append(x)
+    got = {name: collectives.all_gather(x, 0, mesh, name)
+           for name, x in parts.items()}
+    none = dict.fromkeys(mesh.physical)
     return {dev: SortedSweep(
-        CubeMaps(color=color[dev], depth=depth[0][dev] if depth else None),
-        mips[dev], order[dev], swap[dev]) for dev in mesh.physical}
+        CubeMaps(color=got["cube_maps"][dev],
+                 depth=got.get("cube_depth", none)[dev]),
+        got["sweep_mips"][dev],
+        got["sweep_order"][dev] if sorted_output
+        else torch.arange(n, device=dev),
+        got.get("sweep_swap", none)[dev]) for dev in mesh.physical}
+
+
+def ray_march_view_sweep_sharded(
+    mesh,               # parallel.collectives.DeviceMesh
+    volumes_sweep,      # replicated {device: (N_src, D, H, W, 4)}
+    vol_tex_ids,        # volume-sharded: [d] -> (N / D,) on mesh.device(0, d)
+    light_sweep,        # replicated {device: (N, L, L, L, 4)}, or with
+                        # light_sharded the shards [d] -> (N / D, L, L, L, 4)
+    per_object,         # replicated {device: PerObject}, all N rows
+    cull,               # replicated {device: CullResult}, all N rows
+    eye,                # replicated {device: (3,)}
+    depth_map,          # replicated {device: (H, W)}, or None
+    cube_map_size: int,
+    num_planes: int | None = None,
+    vol_zmax=None,      # replicated, or None
+    impl: str | None = None,
+    light_sharded: bool = False,
+    pack: bool = False,
+) -> dict:
+    """The un-bucketed sweep partitioned over the mesh's volume axis
+    (`march_volume_shards`): shard d marches its own N / D volumes at the
+    full resolution S in one launch of kernel B1 (`ray_march_view_sweep`
+    on its rows of the per-object data, the cull and the light stack);
+    with `depth_map` its rays stop at the scene depth -> replicated
+    {device: CubeMaps}."""
+    def march(dev, d, rows):
+        return ray_march_view_sweep(
+            volumes_sweep[dev], vol_tex_ids[d],
+            light_sweep[d] if light_sharded else light_sweep[dev][rows],
+            per_object[dev].take(rows), cull[dev].take(rows), eye[dev],
+            None if depth_map is None else depth_map[dev], cube_map_size,
+            num_planes=num_planes,
+            vol_zmax=None if vol_zmax is None else vol_zmax[dev], impl=impl)
+
+    return march_volume_shards(
+        mesh, vol_tex_ids[0].shape[0] * mesh.n_volumes_axis, march,
+        depth_map is not None, pack=pack)
+
+
+def march_volume_shards(mesh, n: int, march, with_depth: bool,
+                        pack: bool = False) -> dict:
+    """`march(dev, d, rows)` -> the CubeMaps of volume shard d, the
+    volumes of global rows `rows` (N / D of the `n`), run on
+    `mesh.device(0, d)` for each index d of the volume axis. With `pack`
+    each shard packs its colour into f16 pairs (`composite.pack_cube_f16`,
+    the gather composite's maps) before the move. The maps are then
+    all-gathered in volume order (`gather_cube_maps`; the cube depth only
+    `with_depth`) -> replicated {device: CubeMaps}."""
+    nl = n // mesh.n_volumes_axis
+    colors, depths = [], []
+    for d in range(mesh.n_volumes_axis):
+        out = march(mesh.device(0, d), d, slice(d * nl, (d + 1) * nl))
+        colors.append(pack_cube_f16(out.color) if pack else out.color)
+        depths.append(out.depth)
+    return gather_cube_maps(mesh, colors, depths if with_depth else None)
+
+
+def gather_cube_maps(mesh, colors, depths=None) -> dict:
+    """The volume shards' cube maps, colour (N / D, 6, C, S, S) and cube
+    depth (N / D, 6, S, S) in shard order, all-gathered onto every
+    physical device -> replicated {device: CubeMaps}. With `depths` None
+    (no scene depth: every texel's is 1) no depth moves; it is made where
+    it is read."""
+    from multivolumes_tpu_torch.parallel import collectives
+
+    color = collectives.all_gather(colors, 0, mesh, "cube_maps")
+    if depths is not None:
+        depth = collectives.all_gather(depths, 0, mesh, "cube_depth")
+    else:
+        n, _f, _c, s, _ = color[mesh.root].shape
+        depth = {dev: torch.ones((n, 6, s, s), dtype=torch.float32,
+                                 device=dev) for dev in mesh.physical}
+    return {dev: CubeMaps(color=color[dev], depth=depth[dev])
+            for dev in mesh.physical}

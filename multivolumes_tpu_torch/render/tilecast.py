@@ -85,8 +85,10 @@ def _tile_prep(cube_maps: CubeMaps, per_object: PerObject, cull: CullResult,
                              "in the wrong orientation")
         color_sel = color
     else:
+        # contiguous for kernel B2: a `where` over a transposed view may
+        # keep the view's strides
         color_sel = torch.where(swap_nf[:, :, None, None, None],
-                                color.transpose(-1, -2), color)
+                                color.transpose(-1, -2), color).contiguous()
     depth_sel = None
     if depth_map is not None and cube_maps.depth is not None:
         if swap_sorted is not None:   # the sweep delivered it swapped
@@ -94,7 +96,7 @@ def _tile_prep(cube_maps: CubeMaps, per_object: PerObject, cull: CullResult,
         else:
             dep = unproject_z(cube_maps.depth.float())
             depth_sel = torch.where(swap_nf[:, :, None, None],
-                                    dep.transpose(-1, -2), dep)
+                                    dep.transpose(-1, -2), dep).contiguous()
 
     faces = []
     for f in range(6):

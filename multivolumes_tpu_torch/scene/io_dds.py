@@ -8,8 +8,12 @@ RGBA16F/RGBA32F cube maps (`LightProbe::Init` radiance environment). It
 returns numpy arrays; `scene.volume.r32f_to_rgba` converts a density to
 the engine's layout as the reference's `CSR32FToRGBA16F` dispatch does.
 
+The writers, `write_dds_r32f_volume` and `write_dds_rgba16f_cube`, write
+the files the JAX package's writers write, byte for byte (round-trip
+tests, exporting procedural volumes and environments).
+
 A copy and not an import: importing the JAX package's `scene` imports its
-state module, and with it JAX. The DDS writers stay in the JAX package.
+state module, and with it JAX.
 """
 
 from __future__ import annotations
@@ -156,3 +160,74 @@ def parse_dds(raw: bytes) -> DDSTexture:
         return DDSTexture(mips[0], True, False, dxgi, mip_count, mips)
     mips = tuple(fix_bgra(m) for m in out_faces[0])
     return DDSTexture(mips[0], False, is_volume, dxgi, mip_count, mips)
+
+
+def _box_down(a: np.ndarray) -> np.ndarray:
+    """2x (2x2x2 for volumes) box-filter downsample, odd dims clamped."""
+    vol = a.ndim == 4
+    if vol:
+        d, h, w = a.shape[:3]
+        a = a[: d - d % 2 or None, : h - h % 2 or None, : w - w % 2 or None]
+        a = a.reshape(max(d // 2, 1), min(2, d), max(h // 2, 1), min(2, h),
+                      max(w // 2, 1), min(2, w), a.shape[-1])
+        return a.mean(axis=(1, 3, 5), dtype=np.float64).astype(a.dtype)
+    h, w = a.shape[:2]
+    a = a[: h - h % 2 or None, : w - w % 2 or None]
+    a = a.reshape(max(h // 2, 1), min(2, h), max(w // 2, 1), min(2, w),
+                  a.shape[-1])
+    return a.mean(axis=(1, 3), dtype=np.float64).astype(a.dtype)
+
+
+def write_dds_r32f_volume(path: str, volume: np.ndarray,
+                          mip_count: int = 1) -> None:
+    """Write a (D, H, W) float32 density grid as an R32F volume DDS with an
+    optional box-filtered mip chain."""
+    volume = np.ascontiguousarray(volume, np.float32)
+    d, h, w = volume.shape
+    header = bytearray(128)
+    struct.pack_into("<I", header, 0, DDS_MAGIC)
+    # size, flags (CAPS|HEIGHT|WIDTH|PIXELFORMAT|DEPTH|LINEARSIZE|MIPCOUNT)
+    flags = 0x1 | 0x2 | 0x4 | 0x1000 | DDSD_DEPTH | 0x80000
+    if mip_count > 1:
+        flags |= 0x20000
+    struct.pack_into("<7I", header, 4, 124, flags, h, w, w * 4, d, mip_count)
+    # pixel format: size 32, flags FOURCC, fourcc D3DFMT_R32F (114)
+    struct.pack_into("<II", header, 76, 32, 0x4)
+    struct.pack_into("<I", header, 84, 114)
+    caps = 0x1000 | 0x8 | (0x400000 if mip_count > 1 else 0)
+    struct.pack_into("<I", header, 108, caps)  # TEXTURE|COMPLEX|MIPMAP
+    struct.pack_into("<I", header, 112, DDSCAPS2_VOLUME)
+    with open(path, "wb") as f:
+        f.write(bytes(header))
+        m = volume[..., None]
+        for i in range(mip_count):
+            f.write(np.ascontiguousarray(m, np.float32).tobytes())
+            if i + 1 < mip_count:
+                m = _box_down(m)
+
+
+def write_dds_rgba16f_cube(path: str, cube: np.ndarray,
+                           mip_count: int = 1) -> None:
+    """Write a (6, R, R, 4) cube map as RGBA16F DDS (DX10 header, the
+    layout the reference's radiance environments use)."""
+    cube = np.ascontiguousarray(cube, np.float16)
+    _, h, w = cube.shape[:3]
+    header = bytearray(148)
+    struct.pack_into("<I", header, 0, DDS_MAGIC)
+    flags = 0x1 | 0x2 | 0x4 | 0x1000 | (0x20000 if mip_count > 1 else 0)
+    struct.pack_into("<7I", header, 4, 124, flags, h, w, w * 8, 0, mip_count)
+    struct.pack_into("<II", header, 76, 32, 0x4)
+    struct.pack_into("<I", header, 84, _fourcc(b"DX10"))
+    caps = 0x1000 | 0x8 | (0x400000 if mip_count > 1 else 0)
+    struct.pack_into("<I", header, 108, caps)
+    struct.pack_into("<I", header, 112, DDSCAPS2_CUBEMAP | 0xFC00)  # all faces
+    # DX10: dxgi, dimension TEXTURE2D (3), misc TEXTURECUBE (0x4), array 1
+    struct.pack_into("<5I", header, 128, DXGI_R16G16B16A16_FLOAT, 3, 0x4, 1, 0)
+    with open(path, "wb") as f:
+        f.write(bytes(header))
+        for face in range(6):
+            m = cube[face]
+            for i in range(mip_count):
+                f.write(np.ascontiguousarray(m, np.float16).tobytes())
+                if i + 1 < mip_count:
+                    m = _box_down(m)

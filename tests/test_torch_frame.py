@@ -129,12 +129,17 @@ def test_engine_renders_with_baked_axis():
     dict(config=dict(adaptive_raymarch=False))])
 def test_unported_settings_raise(change):
     """The reference modes, point lights, the warp and gather composites
-    and the un-bucketed sweep run in the unsharded frame; the sharded
-    step does not run them yet and says so."""
+    and the un-bucketed sweep run in the unsharded frame and in the
+    sharded step alike (tests/test_torch_sharding_modes.py renders them);
+    what still raises is an unknown setting, sharded or not. The name is
+    kept from when the sharded step refused these settings."""
     cfg = port_config(CONFIGS["f32"].with_(**change.pop("config", {})))
     pframe.check_supported(cfg, **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pframe.check_supported(cfg, sharded=True, **change)
+    pframe.check_supported(cfg, sharded=True, **change)
+    for unknown in (dict(march_mode="fast"), dict(light_mode="fast"),
+                    dict(composite_mode="scatter")):
+        with pytest.raises(ValueError, match="unknown setting"):
+            pframe.check_supported(cfg.with_(**unknown), sharded=True)
 
 
 def test_port_imports_no_jax():

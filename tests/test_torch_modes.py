@@ -136,15 +136,19 @@ def test_frame_stats_match_jax():
 
 
 def test_sharded_step_refuses_other_settings():
+    """The sharded step accepts every setting of the unsharded frame and
+    refuses, as the frame does, only unknown ones. The name is kept from
+    when it refused the settings below."""
     for change in (dict(march_mode="reference"), dict(point_light=True),
                    dict(composite_mode="warp"), dict(lod_bucket_caps=None),
                    dict(adaptive_raymarch=False)):
         cfg = port_config(CFG.with_(**change))
         pframe.check_supported(cfg)
-        with pytest.raises(NotImplementedError, match="sharded"):
-            pframe.check_supported(cfg, sharded=True)
-    with pytest.raises(ValueError, match="unknown"):
-        pframe.check_supported(port_config(CFG.with_(march_mode="fast")))
+        pframe.check_supported(cfg, sharded=True)
+    for sharded in (False, True):
+        with pytest.raises(ValueError, match="unknown"):
+            pframe.check_supported(port_config(CFG.with_(march_mode="fast")),
+                                   sharded=sharded)
 
 
 def test_app_reference_march_and_stats(tmp_path, capsys):

@@ -30,8 +30,8 @@ import numpy as np
 import pytest
 import torch
 from torch_parity import (clone_state, image_stats, jax_state_dict, n,
-                          port_camera, port_config, port_cull,
-                          port_per_object, t, taa_operands)
+                          one_torch_thread, port_camera, port_config,
+                          port_cull, port_per_object, t, taa_operands)
 
 from multivolumes_tpu.config import RenderConfig
 from multivolumes_tpu.core import camera as jcam
@@ -57,6 +57,8 @@ from multivolumes_tpu_torch.render import warp as pwarp
 from multivolumes_tpu_torch.render.perframe import build_per_object
 from multivolumes_tpu_torch.render.raymarch import CubeMaps
 from multivolumes_tpu_torch.scene import state as pstate
+
+assert one_torch_thread  # the module-wide fixture, used by every test
 
 CFG = RenderConfig(width=96, height=64, grid_size=16, light_grid_size=8,
                    max_ray_samples=16, max_light_samples=8, num_volumes=4,
@@ -419,24 +421,23 @@ def test_dryrun_on_logical_cpu_shards():
 
 def test_sharded_step_with_an_opaque_mesh_raises(port_scene):
     """The sharded step takes an opaque mesh (here a degenerate one that
-    covers no pixel, so the frame is the unsharded one); with the mesh it
-    raises only for the settings it does not run yet, naming them
-    (tests/test_torch_sharding_mesh.py holds a real mesh). The name is
-    kept from when the sharded step refused every opaque mesh."""
+    covers no pixel, so the frame is the unsharded one), with the main
+    path's composite and with the warp composite, each equal to the
+    unsharded frame (tests/test_torch_sharding_mesh.py holds a real
+    mesh). The name is kept from when the sharded step refused every
+    opaque mesh, and then the warp composite with it."""
     ps, cam = port_scene
     with_mesh = dataclasses.replace(
         clone_state(ps), mesh_indices=torch.zeros((2, 3), dtype=torch.int64))
     mesh = _port_mesh(2, 2)
     cfg = port_config(CFG.with_(show_mesh=True))
-    img, state = psh.make_sharded_step(cfg, mesh)(
-        psh.shard_state(clone_state(with_mesh), mesh), cam)
-    want = pframe.render_frame(clone_state(with_mesh), cam, cfg)
-    np.testing.assert_allclose(n(img), n(want.image), atol=2e-5)
-    assert torch.equal(psh.unshard_state(state).mesh_prev_wvp,
-                       want.state.mesh_prev_wvp)
-    step = psh.make_sharded_step(cfg.with_(composite_mode="warp"), mesh)
-    with pytest.raises(NotImplementedError, match="composite_mode='warp'"):
-        step(psh.shard_state(with_mesh, mesh), cam)
+    for c in (cfg, cfg.with_(composite_mode="warp")):
+        img, state = psh.make_sharded_step(c, mesh)(
+            psh.shard_state(clone_state(with_mesh), mesh), cam)
+        want = pframe.render_frame(clone_state(with_mesh), cam, c)
+        np.testing.assert_allclose(n(img), n(want.image), atol=2e-5)
+        assert torch.equal(psh.unshard_state(state).mesh_prev_wvp,
+                           want.state.mesh_prev_wvp)
 
 
 @pytest.mark.parametrize("shard_light", [False, True],

@@ -337,3 +337,27 @@ def test_shard_state_carries_the_mesh(port_state):
     whole = psh.unshard_state(sharded)
     for f in fields:
         assert torch.equal(getattr(whole, f), getattr(port_state, f))
+
+
+def test_sharded_unbucketed_mesh_step_matches_unsharded_port(jax_mesh,
+                                                             port_state):
+    """The un-bucketed sweep with the mesh on 2 rows x 2 volume shards:
+    one B1 launch per volume shard whose rays the replicated depth map
+    bounds, the tile composite in row bands on unsorted maps (B2' band),
+    two frames against the port's unsharded frames of the same setting."""
+    cfg, _st = jax_mesh
+    pcfg = port_config(_cfg(cfg, "far")).with_(lod_bucket_caps=None)
+    images, state, mesh = _sharded_frames(pcfg, port_state, 2, 2)
+    single = clone_state(port_state)
+    for k, img in enumerate(images):
+        out = pframe.render_frame(single, port_camera(_jax_camera(k)), pcfg)
+        single = out.state
+        np.testing.assert_allclose(n(img), n(out.image), atol=2e-5)
+    assert float((out.hdr[..., 3] > 0.999).float().mean()) > 0.05
+    whole = psh.unshard_state(state)
+    np.testing.assert_allclose(n(whole.taa_history), n(single.taa_history),
+                               atol=2e-5)
+    assert torch.equal(whole.light_maps, single.light_maps)
+    assert torch.equal(whole.mesh_prev_wvp, single.mesh_prev_wvp)
+    names = [c[0] for c in mesh.log]
+    assert "cube_depth" in names and "sweep_order" not in names

@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import (jax_lod_case, jax_state_dict, n, port_cull,
-                          port_per_object, t)
+from torch_parity import (jax_lod_case, jax_state_dict, n,
+                          one_torch_thread, port_cull, port_per_object, t)
 
 from multivolumes_tpu.ops.pallas.sweep_kernel import sweep_batched_pallas
 from multivolumes_tpu.render import sweep as jsw
@@ -20,6 +20,8 @@ from multivolumes_tpu_torch.ops import sweep as psw_ops
 from multivolumes_tpu_torch.render import sweep as psw
 from multivolumes_tpu_torch.render import warp as pwarp
 from multivolumes_tpu_torch.scene import state as pstate
+
+assert one_torch_thread  # the module-wide fixture, used by every test
 
 TOL = dict(atol=2e-3, rtol=2e-2)
 
@@ -189,3 +191,69 @@ def test_sweep_flags_are_the_shared_function(lod_case):
         t(basis), pos.world_i, pos.world_view_proj,
         pm.transform_point3(t(cam.eye), pos.world_i), n_eff)
     assert torch.equal(flags, got.swap)
+
+
+def test_flip_proofs_bisect_every_ray_at_once():
+    """`tools/sweep_outliers.one_sample_flips` (what `chip_smoke.py:
+    flip_tol` proves B1's outlier rays with) against the same bisection
+    made ray by ray with `cut_march`, on a stand-in for the kernel: the
+    plain version on densities 0.3% higher, so that samples at the 0.01
+    threshold flip. The batched proof finds the plane and the side of
+    each ray as the single-ray one does, and reports the rays that first
+    part where both sides composite (the higher densities build up)."""
+    from multivolumes_tpu_torch.config import RenderConfig
+    from multivolumes_tpu_torch.core import camera as pcam
+    from multivolumes_tpu_torch.render import frame as pframe
+    from multivolumes_tpu_torch.tools import sweep_outliers as so
+
+    cfg = RenderConfig(width=96, height=64, grid_size=16, light_grid_size=8,
+                       max_ray_samples=16, max_light_samples=8,
+                       num_volumes=4, num_volume_srcs=2, cube_map_size=16,
+                       shadow_map_size=32, light_axis=2, lod_bucket_caps=None)
+    state = pstate.create_scene(cfg, device="cpu")
+    calls, orig = [], psw.sweep_march
+
+    def record(*a, **k):
+        calls.append((a, {n_: x for n_, x in k.items() if n_ != "impl"}))
+        return orig(*a, **k)
+
+    def stand_in(*a, impl=None, **k):
+        if impl == "kernel":
+            a = (a[0] * 1.003,) + a[1:]
+        return orig(*a, **k, impl="plain")
+
+    psw.sweep_march = record
+    try:
+        pframe.render_frame(state, pcam.orbit_camera(
+            0.3, cfg.aspect_ratio, device="cpu"), cfg)
+        a, k = calls[0]
+        psw.sweep_march = stand_in
+        got, want = (stand_in(*a, **k, impl=i) for i in ("kernel", "plain"))
+        bad = (got - want).abs() > 2e-3 + 2e-2 * want.abs()
+        rays = sorted({tuple(x[:2] + x[3:]) for x in bad.nonzero().tolist()})
+        assert len(rays) >= 2
+        proofs = so.one_sample_flips(a, k, rays)
+
+        def one_ray(ray, dtype=a[0].dtype):
+            lo, hi = -1, a[7] - 1
+            rows_lo, rows_hi = (so.cut_march(a, k, ray, dtype, m)
+                                for m in (lo, hi))
+            while hi - lo > 1:
+                mid = (lo + hi) // 2
+                rows = so.cut_march(a, k, ray, dtype, mid)
+                if so._parted(rows):
+                    hi, rows_hi = mid, rows
+                else:
+                    lo, rows_lo = mid, rows
+            grew = rows_hi - rows_lo
+            still = grew.abs().amax(1) <= 1e-6
+            for side, other, name in ((1, 0, "kernel"), (0, 1, "plain")):
+                if bool(still[side]) and float(grew[other, 3]) > 1e-4:
+                    return hi, name
+            return hi, None
+
+        assert proofs == [one_ray(r) for r in rays]
+        assert any(side is None for _m, side in proofs)
+        assert any(side == "kernel" for _m, side in proofs)
+    finally:
+        psw.sweep_march = orig

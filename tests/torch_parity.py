@@ -245,3 +245,70 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def jax_sharded_gaps(settings, meshes=((4, 1), (2, 2)), frames: int = 2):
+    """How far the JAX sharded step (`parallel.sharding.make_sharded_step`)
+    is from the JAX unsharded frame, per setting and mesh, at the
+    configuration of tests/test_torch_sharding_modes.py: {(setting,
+    (volume shards, rows)): [(mean, p99.9, max) per frame]}, or the
+    exception a step raised. Needs the 8 virtual CPU devices that
+    tests/conftest.py sets up (`XLA_FLAGS=--xla_force_host_platform_
+    device_count=8`)."""
+    import jax
+
+    from multivolumes_tpu.config import RenderConfig
+    from multivolumes_tpu.core import camera as jcam
+    from multivolumes_tpu.parallel import sharding as jsh
+    from multivolumes_tpu.render import frame as jframe
+    from multivolumes_tpu.scene import state as jstate
+
+    base = RenderConfig(width=96, height=64, grid_size=16, light_grid_size=8,
+                        max_ray_samples=16, max_light_samples=8,
+                        num_volumes=4, num_volume_srcs=2, cube_map_size=16,
+                        shadow_map_size=32, use_bf16=False, light_axis=2)
+    out = {}
+    for name, change in settings.items():
+        cfg = base.with_(**change)
+        st = jstate.create_scene(cfg)
+        cam = jcam.default_camera(cfg.aspect_ratio)
+        step1 = jax.jit(lambda s, c, cfg=cfg: jframe.render_frame(s, c, cfg))
+        want, s1 = [], st
+        for _ in range(frames):
+            o = step1(s1, cam)
+            want.append(np.asarray(o.image))
+            s1 = o.state
+        for nd, rows in meshes:
+            try:
+                mesh = jsh.make_mesh(nd, rows=rows)
+                step = jsh.make_sharded_step(cfg, mesh)
+                js, gaps = jsh.shard_state(st, mesh), []
+                for k in range(frames):
+                    img, js = step(js, cam)
+                    d = np.abs(np.asarray(img) - want[k])
+                    gaps.append((float(d.mean()),
+                                 float(np.percentile(d, 99.9)),
+                                 float(d.max())))
+                out[name, (nd, rows)] = gaps
+            except Exception as e:                  # noqa: BLE001
+                out[name, (nd, rows)] = e
+    return out
+
+
+if __name__ == "__main__":
+    # the JAX sharded step in each setting of the port's sharded-step tests
+    import os
+    import sys
+
+    os.environ.setdefault("XLA_FLAGS",
+                          "--xla_force_host_platform_device_count=8")
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_cpu_enable_async_dispatch", False)
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path[:0] = [here, os.path.dirname(here)]
+    from test_torch_sharding_modes import SETTINGS
+
+    for key, gaps in jax_sharded_gaps(SETTINGS).items():
+        print(key, gaps, flush=True)
