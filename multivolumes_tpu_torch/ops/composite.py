@@ -94,6 +94,15 @@ def mesh_tile_votes(scene, th: int, tw: int, tiles_x: int):
     return ((z > 0.0) & (z < 1.0)).flatten(1).any(dim=1)
 
 
+def pixel_ndc(idx, size: int, dtype=torch.float32):
+    """(idx + 0.5) / size * 2 - 1 in `dtype`, the division correctly
+    rounded as the kernel's: the divisor is a tensor on `idx`'s device,
+    because PyTorch on the card divides by a host scalar as a product
+    with its reciprocal, one ulp off in some columns."""
+    return (idx.to(dtype) + 0.5) / torch.tensor(
+        size, dtype=dtype, device=idx.device) * 2.0 - 1.0
+
+
 def tile_composite_plain(color, scene, tlist, counts, vol_flt, face_flt,
                          th: int, tw: int, tiles_x: int, k_layers: int,
                          width: int, height: int, depth_sel=None,
@@ -105,9 +114,9 @@ def tile_composite_plain(color, scene, tlist, counts, vol_flt, face_flt,
     dev, ft = scene.device, scene.dtype
     rows = torch.arange(hp, device=dev)
     cols = torch.arange(wp, device=dev)
-    xg = ((cols.to(ft) + 0.5) / width * 2.0 - 1.0)[None, :].expand(hp, wp)
-    yg = (-(((rows + tile_row0 * th).to(ft) + 0.5) / height * 2.0
-            - 1.0))[:, None].expand(hp, wp)
+    xg = pixel_ndc(cols, width, ft)[None, :].expand(hp, wp)
+    yg = -pixel_ndc(rows + tile_row0 * th, height,
+                    ft)[:, None].expand(hp, wp)
     tile = (rows // th)[:, None] * tiles_x + (cols // tw)[None, :]
     cnt = counts.long()[tile]
     img = color.to(ft)

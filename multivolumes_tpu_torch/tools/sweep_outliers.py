@@ -28,9 +28,8 @@ ray beyond the limit a one-sample flip where it is one, and for each
 other ray prints B1, the plain version and the per-ray twin in B1's
 operation order (`ops.sweep.sweep_march_rays_plain`) around the plane
 where B1 and the plain version first part; then it holds the B2 band
-calls of that frame against their plain version, both against the plain
-version in f64, and the kernel against the plain version with the
-pixel's NDC divided as the kernel divides it.
+calls of that frame against their plain version, and both against the
+plain version in f64.
 """
 
 from __future__ import annotations
@@ -328,16 +327,6 @@ def explain_band(a, k, show: int):
           f"{int(((got - ref).abs() > 1e-4 + 1e-4 * ref.abs()).sum())}, "
           f"plain "
           f"{int(((want - ref).abs() > 1e-4 + 1e-4 * ref.abs()).sum())}")
-    # the plain version takes the pixel's NDC from a division by the host
-    # scalar width (height), which PyTorch on the card computes as a
-    # product with the scalar's reciprocal; with the divisors on the
-    # device it divides as the kernel does
-    exact = tile_composite_plain(*a[:10], *(
-        torch.tensor(float(v), device=got.device) for v in a[10:12]),
-        *a[12:], **k)
-    print(f"  the plain version with the NDC divided as the kernel does: "
-          f"{int(((got - exact).abs() > 1e-4 + 1e-4 * exact.abs()).sum())} "
-          f"elements beyond, max {float((got - exact).abs().max()):.3e}")
     th, tw, tiles_x = a[6], a[7], a[8]
     for c, y, x in beyond.nonzero().tolist()[:show]:
         t = (y // th) * tiles_x + x // tw

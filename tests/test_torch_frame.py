@@ -153,7 +153,7 @@ def test_port_imports_no_jax():
             "for name in names:\n"
             "    importlib.import_module(name)\n"
             "for need in ('render.mesh', 'scene.io_obj', 'app', 'config',\n"
-            "             'engine', 'render.frame', 'utils.png'):\n"
+            "             'engine', 'render.frame', 'utils.png', 'bench'):\n"
             "    assert pkg.__name__ + '.' + need in names, need\n"
             "bad = [m for m in sys.modules if m == 'jax'\n"
             "       or m.startswith('jax.') or m == 'multivolumes_tpu'\n"

@@ -414,6 +414,37 @@ def test_b2_kernel_matches_plain_on_card():
     torch.testing.assert_close(band, got[:, th:], atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_b2_plain_ndc_is_correctly_rounded(device, monkeypatch):
+    """B2's plain version takes each pixel's NDC from `pixel_ndc`, whose
+    division (x + 0.5) / size is the correctly rounded f32 quotient, as
+    the kernel's, in every column of a 1280-wide and every row of an
+    800-high screen. Divided by a host scalar, PyTorch on the card
+    multiplies by its reciprocal instead, one ulp off in 256 of the 1280
+    columns. The quotient is taken in f64 and rounded once to f32, which
+    is the correctly rounded f32 quotient (53 >= 2 * 24 + 2 bits)."""
+    dev = cuda_device() if device == "cuda" else torch.device(device)
+    for size in (1280, 800):
+        idx = torch.arange(size, device=dev)
+        q = ((np.arange(size) + 0.5) / size).astype(np.float32)
+        want = torch.from_numpy(q * np.float32(2.0) - np.float32(1.0))
+        got = composite_ops.pixel_ndc(idx, size).cpu()
+        assert got.dtype == torch.float32
+        differ = got != want
+        assert not bool(differ.any()), (
+            f"{int(differ.sum())} of {size} NDC values differ")
+    # the plain version's x and y NDC both come from pixel_ndc
+    sizes = []
+    orig = composite_ops.pixel_ndc
+    monkeypatch.setattr(composite_ops, "pixel_ndc", lambda i, s, *a: (
+        sizes.append(s), orig(i, s, *a))[1])
+    st = state_lib.create_scene(SMALL, dev)
+    frame_lib.render_frame(st, cam_lib.orbit_camera(
+        0.3, SMALL.aspect_ratio, device=dev), SMALL, impl="plain")
+    assert sizes == [SMALL.width, SMALL.height]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("use_bf16", [False, True])
 def test_frame_kernels_match_plain_on_card(use_bf16):
