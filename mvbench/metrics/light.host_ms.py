@@ -1,0 +1,6 @@
+"""The light pass's host ms per traced frame (`render_frame`'s marks)."""
+from mvbench import readers
+
+
+def read(ctx):
+    return readers.pass_ms(ctx, "light", "host_ms")

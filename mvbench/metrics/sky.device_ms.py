@@ -1,0 +1,6 @@
+"""The sky pass's device ms per traced frame (`render_frame`'s marks)."""
+from mvbench import readers
+
+
+def read(ctx):
+    return readers.pass_ms(ctx, "sky", "device_ms")

@@ -1,0 +1,6 @@
+"""The taa pass's device ms per traced frame (`render_frame`'s marks)."""
+from mvbench import readers
+
+
+def read(ctx):
+    return readers.pass_ms(ctx, "taa", "device_ms")

@@ -1,0 +1,384 @@
+"""Plane-sweep view-space marching: the cube-map march.
+
+Counterpart of `multivolumes_tpu/render/sweep.py` (`eye_to_face_frames`,
+`face_ray_params`, `lod_partition`, `ray_march_view_sweep_lod` with its
+three output contracts, `ray_march_view_sweep`, the un-bucketed march of
+every volume at full resolution, and `ray_march_view_sweep_lod_sharded`
+and `ray_march_view_sweep_sharded`, the two split over the volume axis
+of a device mesh). The
+per-(volume, face) march itself is kernel B1 (`ops/sweep.py`); this
+module does the per-frame geometry around it: face frames, ray
+intervals, LOD buckets, the sorted assembly and the Catmull-Smith
+pre-swap of each face for the tile composite. With a scene depth map
+(the opaque mesh), each ray also ends where the scene occludes it
+(`_occlusion_s_max`, the reference's `GetTMax` in the sweep's ray
+parameter, sampled per bucket at a quarter, half or full bucket
+resolution), and the bucket's cube depth, unprojected to view distance
+and swapped like the faces, goes to the composite's CubeCast weights.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from mvbench.reference.config import SharedConsts
+from mvbench.reference.core import math3d
+from mvbench.reference.ops.sweep import sweep_march
+from mvbench.reference.render.composite import (pack_cube_f16,
+                                                      unproject_z)
+from mvbench.reference.render.cull import CullResult
+from mvbench.reference.render.perframe import PerObject
+from mvbench.reference.render.raymarch import (
+    FLT_MAX, CubeMaps, _safe, _transform_point_soa, compute_ray_origin_soa,
+    get_local_pos_soa, get_t_max_soa)
+from mvbench.reference.render.warp import catmull_swap_flags
+
+
+def eye_to_face_frames(eye_local):
+    """(..., 3) local eye -> (..., 6, 3) (eu, ev, ew) per face."""
+    ex, ey, ez = eye_local[..., 0], eye_local[..., 1], eye_local[..., 2]
+    return torch.stack(
+        [
+            torch.stack([-ez, ey, ex], -1),   # f0 +X
+            torch.stack([ez, ey, -ex], -1),   # f1 -X
+            torch.stack([ex, -ez, ey], -1),   # f2 +Y
+            torch.stack([ex, ez, -ey], -1),   # f3 -Y
+            torch.stack([ex, ey, ez], -1),    # f4 +Z
+            torch.stack([-ex, ey, -ez], -1),  # f5 -Z
+        ],
+        dim=-2,
+    )
+
+
+class SweepParams(NamedTuple):
+    s_in: torch.Tensor     # (..., S, S) per-ray entry parameter
+    s_end: torch.Tensor    # (..., S, S) per-ray end (exit)
+    ray_len: torch.Tensor  # (..., S, S) |g - eye|
+    active: torch.Tensor   # (..., S, S) ray validity
+
+
+def face_ray_params(eye_f, u, v, s_max=None):
+    """Per-ray sweep parameters in the face frame. eye_f: (B, 3); u, v:
+    (B, S) per-batch face coords in [-1, 1]; s_max: optional (B, S, S)
+    occlusion bound in s."""
+    eu, ev, ew = (eye_f[:, i, None, None] for i in range(3))
+    gx = u[:, None, :] - eu
+    gy = v[:, :, None] - ev
+    gz = 1.0 - ew
+
+    def slab(e, d):
+        d_safe = torch.where(d.abs() > 1e-12, d,
+                             torch.where(d >= 0, 1e-12, -1e-12))
+        s1 = (-1.0 - e) / d_safe
+        s2 = (1.0 - e) / d_safe
+        return torch.minimum(s1, s2), torch.maximum(s1, s2)
+
+    ix, ox = slab(eu, gx)
+    iy, oy = slab(ev, gy)
+    iz, oz = slab(ew, gz)
+    s_in = torch.maximum(torch.maximum(ix, iy), torch.clamp(iz, min=0.0))
+    s_out = torch.minimum(torch.minimum(ox, oy), oz)
+    ray_len = torch.sqrt(gx * gx + gy * gy + gz * gz)
+    s_end = torch.clamp(s_out, max=1.0)
+    if s_max is not None:
+        s_end = torch.minimum(s_end, s_max)
+    return SweepParams(s_in=s_in, s_end=s_end, ray_len=ray_len,
+                       active=s_out > s_in)
+
+
+def _roll_edge(x, d: int, dim: int):
+    """Edge-clamped shift by d along dim: out[i] = x[clip(i + d)]."""
+    n = x.shape[dim]
+    idx = torch.clamp(torch.arange(n, device=x.device) + d, 0, n - 1)
+    return x.index_select(dim, idx)
+
+
+def _dilate3_max(x):
+    """3x3 max over the last two dims (separable, edge-clamped)."""
+    for dim in (-2, -1):
+        x = torch.maximum(torch.maximum(_roll_edge(x, 1, dim),
+                                        _roll_edge(x, -1, dim)), x)
+    return x
+
+
+def _pool2_max(d):
+    """2x2 stride-2 max-pool of a scene depth map (z = 1 far, so the
+    derived bound s_max can only grow); odd sizes stay as they are."""
+    hd, wd = d.shape
+    if hd % 2 or wd % 2:
+        return d
+    return d.reshape(hd // 2, 2, wd // 2, 2).amax(dim=(1, 3))
+
+
+def _upsample2_nearest(x, s: int):
+    """(..., s/2, s/2) -> (..., s, s) nearest."""
+    return x.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+
+
+def _occlusion_s_max(per_object: PerObject, eye_local, depth_map, s: int,
+                     n_eff):
+    """Scene-depth occlusion per texel (the reference's GetClipPos +
+    GetTMax, `CSRayMarch.hlsl:102-107`) in the sweep's ray parameter s,
+    on each volume's n_eff texel grid (centres at (i + 0.5) / n_eff).
+    Returns (s_max (N, 6, s, s), the sampled scene clip z)."""
+    n = eye_local.shape[0]
+    dev = eye_local.device
+    ij = torch.arange(s, dtype=torch.float32, device=dev)
+    jj, ii = torch.meshgrid(ij, ij, indexing="ij")
+    denom = n_eff.float()[:, None, None, None]
+    px = ((ii[None, None] + 0.5) / denom * 2.0 - 1.0).expand(n, 6, s, s)
+    py = (-((jj[None, None] + 0.5) / denom * 2.0 - 1.0)).expand(n, 6, s, s)
+    face = torch.arange(6, device=dev)[None, :, None, None]
+    tx, ty, tz = get_local_pos_soa(px, py, face)
+
+    ex, ey, ez = (eye_local[:, i, None, None, None] for i in range(3))
+    dxu, dyu, dzu = tx - ex, ty - ey, tz - ez
+    il = torch.rsqrt(torch.clamp(dxu * dxu + dyu * dyu + dzu * dzu,
+                                 min=1e-20))
+    dx, dy, dz = dxu * il, dyu * il, dzu * il
+    ox, oy, oz, _hit = compute_ray_origin_soa(
+        ex.expand_as(tx), ey.expand_as(tx), ez.expand_as(tx), dx, dy, dz)
+
+    prx, pry, prz = ox + 0.01 * dx, oy + 0.01 * dy, oz + 0.01 * dz
+    wvp = per_object.world_view_proj[:, None, None, None]
+    hx, hy, _hz, hw = _transform_point_soa(prx, pry, prz, wvp)
+    hw = _safe(hw, 1e-20)
+    cx, cy = hx / hw, hy / hw
+    uu = cx * 0.5 + 0.5
+    vv = 1.0 - (cy * 0.5 + 0.5)
+    hd, wd = depth_map.shape
+
+    def tap(c, nn):
+        # truncation toward zero as the JAX int32 cast, kept in range
+        return torch.clamp(torch.clamp(c * nn, -1.0, float(nn)).long(),
+                           0, nn - 1)
+
+    z = depth_map[tap(vv, hd), tap(uu, wd)]
+    t_max = get_t_max_soa(cx, cy, z, ox, oy, oz, dx, dy, dz,
+                          per_object.world_view_proj_i[:, None, None, None])
+
+    # s is measured from the eye (p = eye + s (g - eye)); the reference's
+    # t from the box-clipped origin along the unit direction
+    L = torch.sqrt(dxu * dxu + dyu * dyu + dzu * dzu)
+    t0x, t0y, t0z = ox - ex, oy - ey, oz - ez
+    t0 = torch.sqrt(t0x * t0x + t0y * t0y + t0z * t0z)
+    s_max = (t0 + torch.clamp(t_max, max=FLT_MAX)) / torch.clamp(L,
+                                                                 min=1e-12)
+    s_max = torch.where(t_max >= FLT_MAX * 0.5, FLT_MAX, s_max)
+    return s_max, z
+
+
+def bucket_occlusion(per_object: PerObject, eye_local, occl_depth, ids,
+                     size_b: int, n_eff_v):
+    """A bucket's occlusion bound and cube depth at size_b, from the
+    2x2-max-pooled scene depth `occl_depth`: quarter-resolution taps of a
+    further 2x2-pooled depth for size_b >= 64, half resolution for
+    size_b >= 32, else full. The coarse bound is 3x3 max-dilated before
+    the nearest upsampling, so s_max only grows against the exact tap
+    (the composite's per-pixel depth test clips the overshoot)."""
+    po_b, eye_b = per_object.take(ids), eye_local[ids]
+    if size_b >= 64:
+        s_max_c, depth_c = _occlusion_s_max(
+            po_b, eye_b, _pool2_max(occl_depth), size_b // 4, n_eff_v * 0.25)
+        up = (lambda x: _upsample2_nearest(
+            _upsample2_nearest(x, size_b // 2), size_b))
+        return up(_dilate3_max(s_max_c)), up(depth_c)
+    if size_b >= 32:
+        s_max_c, depth_c = _occlusion_s_max(
+            po_b, eye_b, occl_depth, size_b // 2, n_eff_v * 0.5)
+        return (_upsample2_nearest(_dilate3_max(s_max_c), size_b),
+                _upsample2_nearest(depth_c, size_b))
+    return _occlusion_s_max(po_b, eye_b, occl_depth, size_b, n_eff_v)
+
+
+def lod_partition(cull: CullResult, n: int, cube_map_size: int,
+                  bucket_caps):
+    """Rank volumes for LOD bucketing -> (order, buckets).
+
+    Sort key: mip ascending, ties by projected edge length descending,
+    invisible volumes last; the sort is stable like `jnp.argsort`, so equal
+    keys keep volume order. buckets = [(start, count, size_b, mip_b), ...]
+    is a static layout."""
+    s = cube_map_size
+    edge = torch.clamp(cull.max_edge_px, 0.0, 65535.0).int()
+    sort_key = torch.where(cull.visible,
+                           cull.mip_level * (1 << 17) + (65536 - edge),
+                           1 << 30)
+    order = torch.argsort(sort_key, stable=True)
+
+    buckets = []
+    start = 0
+    mip = 0
+    for cap in bucket_caps:
+        size_b = max(s >> mip, 8)
+        count = min(cap, n - start)
+        if count > 0:
+            buckets.append((start, count, size_b, mip))
+            start += count
+        mip += 1
+        if start >= n:
+            break
+    while start < n:  # leftover beyond the last cap: smallest bucket
+        s0, c0, size_b, mip_b = buckets[-1]
+        buckets[-1] = (s0, c0 + (n - start), size_b, mip_b)
+        start = n
+    return order, buckets
+
+
+class SortedSweep(NamedTuple):
+    """The LOD sweep's output: map rows in `order` (bucket-sorted, or the
+    identity with sorted_output=False)."""
+    cube_maps: CubeMaps     # rows in `order`; faces pre-swapped by `swap`
+    mips: torch.Tensor      # (N,) int32 effective mip, ORIGINAL indexing
+    order: torch.Tensor     # (N,) row j = volume order[j]
+    swap: torch.Tensor      # (N, 6) bool Catmull-Smith flags, sorted rows;
+                            # None without a swap basis
+
+
+def bucket_mips(cull: CullResult, ids, mip_b: int, max_mip: int):
+    """Effective mip of each bucket volume: its projected mip, one level
+    deeper when the adaptive scheme routes it off the cube-map path,
+    floored by the bucket's level."""
+    actual = torch.clamp(cull.mip_level[ids], 0, max_mip)
+    scheme_off = (~cull.use_cube_map[ids]).int()
+    return torch.clamp(torch.maximum(actual + scheme_off,
+                                     torch.tensor(mip_b, device=ids.device)),
+                       mip_b, max_mip).int()
+
+
+def bucket_march_args(cull: CullResult, eye_faces, ids, size_b: int,
+                      n_eff_v, s_max=None):
+    """Kernel-B1 arguments of one bucket: (eye faces, params, smp_count,
+    run mask), rays beyond each volume's n_eff corner dead; `s_max`
+    (count, 6, S_b, S_b) bounds the rays by the scene depth."""
+    count = ids.shape[0]
+    ar = torch.arange(size_b, dtype=torch.float32, device=ids.device)
+    u = (ar[None] + 0.5) / n_eff_v[:, None] * 2.0 - 1.0     # (count, S_b)
+    u6 = u.repeat_interleave(6, dim=0)
+    eye_f_b = eye_faces[ids]
+    params = face_ray_params(
+        eye_f_b.reshape(count * 6, 3), u6, -u6,
+        None if s_max is None else s_max.reshape(count * 6, size_b, size_b))
+    in_corner = ((ar[None, None, :] < n_eff_v[:, None, None])
+                 & (ar[None, :, None] < n_eff_v[:, None, None]))
+    shape = (count, 6, size_b, size_b)
+    params = SweepParams(
+        *(x.reshape(shape) for x in (params.s_in, params.s_end,
+                                     params.ray_len)),
+        params.active.reshape(shape) & in_corner[:, None])
+    run = cull.face_mask[ids] & cull.visible[ids][:, None]
+    return eye_f_b, params, cull.smp_count[ids], run
+
+
+def ray_march_view_sweep_lod(
+    volumes_sweep,      # (N_src, D, H, W, 4) sweep dtype
+    vol_tex_ids,        # (N,)
+    light_sweep,        # (N, L, L, L, 4) sweep dtype
+    per_object: PerObject,
+    cull: CullResult,   # use_cube_map = visible for the LOD march
+    eye,
+    cube_map_size: int,
+    swap_basis,         # (3, 3) warp.screen_basis, or None
+    bucket_caps=(8, 24, 1 << 30),
+    vol_zmax=None,
+    impl: str | None = None,
+    depth_map=None,     # (H, W) scene clip depth (the mesh), or None
+    sorted_output: bool = True,
+    pack: bool = False,
+) -> SortedSweep:
+    """LOD-bucketed sweep (the reference's work-graph cube-map dispatch,
+    `LibRayMarch.hlsl:39-134`, as fixed-capacity resolution buckets):
+    volumes sorted by mip sweep at S, S/2, S/4 ... in bucket order; each
+    map fills the top-left n_eff^2 corner of its (S, S) face.
+
+    Three output contracts, as the JAX function's:
+    * the tile composite's (`sorted_output`, a `swap_basis`): rows in
+      bucket order, in the sweep dtype, each face pre-swapped; with
+      `depth_map` the cube depth in view distance, swapped like the
+      faces, Z_FAR outside each corner;
+    * the warp composite's (`sorted_output=False`, no swap basis): rows
+      in volume order, unswapped, in the sweep dtype; the cube depth is
+      the sampled scene clip depth, 1 outside each corner;
+    * the gather composite's: the same with `pack`, the colour f16-pair
+      packed from the f32 march (`composite.pack_cube_f16`).
+    With `depth_map`, rays stop at the scene depth."""
+    if swap_basis is not None and (pack or not sorted_output):
+        raise ValueError("swap_basis is the tile composite's contract: "
+                         "sorted, unpacked")
+    n = vol_tex_ids.shape[0]
+    s = cube_map_size
+    dev = volumes_sweep.device
+    eye_local = math3d.transform_point3(eye, per_object.world_i)
+    eye_faces = eye_to_face_frames(eye_local)
+    order, buckets = lod_partition(cull, n, s, bucket_caps)
+    max_mip = max((s // 8).bit_length() - 1, 0)
+
+    mips = torch.zeros((n,), dtype=torch.int32, device=dev)
+    bucket_ids, n_effs = [], []
+    for (b0, count, _size_b, mip_b) in buckets:
+        ids = order[b0:b0 + count]
+        eff_mip = bucket_mips(cull, ids, mip_b, max_mip)
+        mips[ids] = eff_mip
+        bucket_ids.append(ids)
+        n_effs.append((s >> eff_mip).float())
+
+    swap = None
+    if swap_basis is not None:
+        # one shared function with the tile prep (warp.catmull_swap_flags),
+        # over every sorted row at once: the prep recomputes exactly this
+        n_eff_sorted = torch.cat(n_effs)
+        po_sorted = per_object.take(order)
+        swap = catmull_swap_flags(
+            swap_basis, po_sorted.world_i, po_sorted.world_view_proj,
+            math3d.transform_point3(eye, po_sorted.world_i), n_eff_sorted)
+
+    if pack:
+        color = torch.zeros((n, 6, 2, s, s), dtype=torch.float32,
+                            device=dev)
+    else:
+        color = torch.zeros((n, 6, 4, s, s), dtype=volumes_sweep.dtype,
+                            device=dev)
+    cube_depth = occl_depth = None
+    if depth_map is not None:
+        cube_depth = torch.full((n, 6, s, s), SharedConsts.Z_FAR
+                                if swap is not None else 1.0,
+                                dtype=torch.float32, device=dev)
+        occl_depth = _pool2_max(depth_map)
+    for (b0, count, size_b, _mip_b), ids, n_eff_v in zip(
+            buckets, bucket_ids, n_effs):
+        rows = slice(b0, b0 + count) if sorted_output else ids
+        sw = None if swap is None else swap[b0:b0 + count, :, None, None]
+        s_max_b = None
+        if depth_map is not None:
+            s_max_b, depth_b = bucket_occlusion(
+                per_object, eye_local, occl_depth, ids, size_b, n_eff_v)
+            if sw is not None:
+                depth_b = unproject_z(depth_b.float())
+                depth_b = torch.where(sw, depth_b.transpose(-1, -2),
+                                      depth_b)
+            cube_depth[rows, :, :size_b, :size_b] = depth_b
+        eye_f_b, params, smp, run = bucket_march_args(
+            cull, eye_faces, ids, size_b, n_eff_v, s_max=s_max_b)
+        scatter = sweep_march(
+            volumes_sweep, light_sweep, vol_tex_ids[ids], eye_f_b, params,
+            smp, run, size_b, size_b, n_eff_b=n_eff_v, light_ids=ids,
+            vol_zmax=vol_zmax, impl=impl)       # (count, 6, 4, Sb, Sb)
+        scatter[:, :, :3] *= 1.0 / (2.0 * math.pi)
+        scatter = scatter * run[:, :, None, None, None]
+        if pack:
+            out_b = pack_cube_f16(scatter)
+        else:
+            out_b = scatter.to(volumes_sweep.dtype)
+        if sw is not None:
+            out_b = torch.where(sw[:, :, None], out_b.transpose(-1, -2),
+                                out_b)
+        color[rows, :, :, :size_b, :size_b] = out_b
+    if not sorted_output:
+        order = torch.arange(n, device=dev)
+    return SortedSweep(CubeMaps(color=color, depth=cube_depth), mips, order,
+                       swap)
+
+
