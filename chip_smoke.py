@@ -1183,8 +1183,8 @@ def phase_demo(engine, cfg, dev, kernels, frames: int = 8,
             block[f].permute(1, 2, 0), seq[f])
     del block, seq
 
-    # per-pass stream times of one more frame (CUDA events), then a frame
-    # for the image checks
+    # per-pass host ms of one more frame (its spans), then a frame for
+    # the image checks
     passes = profile_frame(engine.state, cams[-1], engine.config, iters=1)
     log(f"[demo] {what} per pass (ms): " + " ".join(
         f"{n} {t:.3f}" for n, t in passes.items()))
@@ -1234,9 +1234,8 @@ def profile_frames(engine, cams, eyes, what, frames: int = 2, mesh=None):
     from torch.profiler import ProfilerActivity, profile
 
     from multivolumes_tpu_torch.render import frame as frame_lib
-    from multivolumes_tpu_torch.tools.trace_ops import pass_marker
+    from multivolumes_tpu_torch.utils.timing import SPAN_PREFIX
 
-    mark = pass_marker()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1245,18 +1244,21 @@ def profile_frames(engine, cams, eyes, what, frames: int = 2, mesh=None):
             if engine.has_mesh:
                 engine.select_raster_preset(eye)
             out = frame_lib.render_frame(engine.state, cam, engine.config,
-                                         timer=mark, mesh=mesh)
+                                         mesh=mesh)
             engine.state = out.state
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / frames
     events = list(prof.events())
     kernels = sorted(
         (e for e in events if e.device_type == DeviceType.CUDA
-         and not e.name.startswith("pass:")
+         and not e.name.startswith(SPAN_PREFIX)
          and not e.name.startswith(("Memcpy", "Memset"))),
         key=lambda e: e.time_range.start)
+    # the passes: the frame spans' ranges (the frame's recorder opens them
+    # while a profiler records)
     ranges = [e for e in events if e.device_type == DeviceType.CPU
-              and e.name.startswith("pass:")]
+              and e.name.startswith(SPAN_PREFIX) and e.cpu_parent is not None
+              and e.cpu_parent.name == SPAN_PREFIX + "frame"]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / frames
     if busy <= 0.0:
         log(f"[profile] {what}: the profiler recorded no device time "
@@ -1268,7 +1270,7 @@ def profile_frames(engine, cams, eyes, what, frames: int = 2, mesh=None):
         f"({busy / wall:.3f} of the frame)")
     per = {}
     for r in ranges:
-        p = per.setdefault(r.name[5:], [0.0, 0.0])
+        p = per.setdefault(r.name[len(SPAN_PREFIX):], [0.0, 0.0])
         p[0] += r.time_range.elapsed_us() / 1e3 / frames
         p[1] += r.device_time_total / 1e3 / frames
     log(f"[profile] {what} per pass (host ms / device ms per frame; device "

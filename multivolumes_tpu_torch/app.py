@@ -11,8 +11,10 @@ without `--warp` and without a CUDA device it exits non-zero. `--mesh`
 loads an OBJ as the opaque mesh (the reference's `-mesh`); each frame
 then picks the mesh raster's preset from the host-side camera pose.
 `--march reference` renders in the reference semantics (per-ray march,
-gather composite), `--stats` adds the cull/LOD stats to each frame's
-line, and `--interactive` takes the hotkeys, [o] and [w] among them. Run:
+gather composite), `--stats` adds the cull/LOD stats and the frame's
+host ms per pass and host syncs (its span record, `utils.timing.SPANS`)
+to each frame's line, and `--interactive` takes the hotkeys, [o] and
+[w] among them. Run:
 
     python -m multivolumes_tpu_torch.app --numVolumes 64 --frames 8 \\
         --animate --mesh bunny.obj --out out.png
@@ -37,7 +39,7 @@ from multivolumes_tpu_torch.engine import MultiRayCaster
 from multivolumes_tpu_torch.render import cull as cull_lib
 from multivolumes_tpu_torch.render.perframe import build_per_object
 from multivolumes_tpu_torch.render.postprocess import srgb_encode
-from multivolumes_tpu_torch.utils import stats as stats_lib
+from multivolumes_tpu_torch.utils import stats as stats_lib, timing
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -92,7 +94,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--f32", dest="bf16", action="store_false",
                    help="full-precision sweep stacks")
     p.add_argument("--stats", action="store_true",
-                   help="print per-frame cull/LOD stats (F1-style overlay)")
+                   help="print per-frame cull/LOD stats (F1-style overlay), "
+                        "then the frame's host ms per pass with its self "
+                        "ms (less its steps and syncs) in brackets, and "
+                        "its host syncs with their wait: the numbers the "
+                        "benchmark reads as <pass>.dispatch_ms, "
+                        "frame.host_syncs and frame.sync_wait_ms")
     p.add_argument("--interactive", action="store_true",
                    help="read hotkey commands from stdin between frames, "
                         "the headless analog of the reference's runtime "
@@ -197,6 +204,16 @@ def parse_volume_args(occurrences, default_file=None):
     return files, vol_pos_scale
 
 
+def host_stats(rec) -> str:
+    """A frame's span record -> its host ms per pass (self ms in
+    brackets) and its host syncs with the ms they waited."""
+    own = rec.self_ms("pass")
+    return ("host ms " + ", ".join(f"{name} {ms:.2f} ({own[name]:.2f})"
+                                   for name, ms in rec.ms("pass").items())
+            + f" | {rec.count('sync')} host syncs, "
+            f"{sum(rec.ms('sync').values()):.2f} ms")
+
+
 def write_image(path: str, img: torch.Tensor) -> None:
     write_png(path, srgb_encode(img.float()).cpu().numpy())
 
@@ -287,7 +304,8 @@ def main(argv=None) -> None:
                 po, camera.eye, [cfg.width, cfg.height],
                 cfg.max_ray_samples, cfg.cube_map_size, cfg.num_cube_mips)
             msg += " | " + stats_lib.format_stats(
-                stats_lib.frame_stats(cull))
+                stats_lib.frame_stats(cull)) + " | " + host_stats(
+                    timing.SPANS.last())
         print(msg, flush=True)
 
     if img is not None:

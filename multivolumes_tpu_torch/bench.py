@@ -188,8 +188,8 @@ def run(cfg, device, frames: int, mesh_path=None) -> dict:
           f"ms over median (readback latency {lat:.1f} ms subtracted; "
           f"mesh={has_mesh})", file=sys.stderr)
 
-    # the per-pass breakdown (stream time of the frame's passes, CUDA
-    # events) so that a regression localizes itself; the JAX bench's
+    # the per-pass breakdown (host ms of the frame's passes, from its
+    # spans) so that a regression localizes itself; the JAX bench's
     # `tail` is `tail + taa + tonemap` here, and its `orient` (a TPU
     # layout) has no counterpart
     passes = None

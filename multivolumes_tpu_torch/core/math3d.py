@@ -8,9 +8,12 @@ creates tensors on the device of its inputs (or the `device` argument).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+
+from multivolumes_tpu_torch.utils import timing
 
 
 def _f32(x, device=None) -> torch.Tensor:
@@ -29,7 +32,9 @@ def look_at_lh(eye, focus, up):
     m[:3, 1] = y
     m[:3, 2] = z
     m[3, :3] = t
-    m[3, 3] = 1.0
+    # a host scalar written into a device tensor: an upload that waits
+    timing.host_read("math3d.look_at",
+                     functools.partial(m.__setitem__, (3, 3), 1.0))
     return m
 
 
@@ -104,7 +109,8 @@ def project_point(p, m):
 
 
 def inverse(m):
-    return torch.linalg.inv(m)
+    """`torch.linalg.inv`, whose singularity check reads the device."""
+    return timing.host_read("math3d.inverse", lambda: torch.linalg.inv(m))
 
 
 def normalize(v, eps: float = 1e-20):

@@ -15,6 +15,7 @@ import torch
 
 from multivolumes_tpu_torch.core import math3d
 from multivolumes_tpu_torch.render.perframe import PerObject
+from multivolumes_tpu_torch.utils import timing
 
 # cube corner i = (x: i&1, y: (i>>1)&1, z: i>>2) in {-1, +1}
 _CORNERS = np.array(
@@ -45,7 +46,8 @@ class CullResult(NamedTuple):
 
 def project_corners(world_view_proj, viewport):
     """All 8 corners to viewport space: (N,4,4),(2,) -> (N,8,3) xy px + z."""
-    corners = torch.from_numpy(_CORNERS).to(world_view_proj.device)
+    corners = timing.host_read("cull.corners", lambda: torch.from_numpy(
+        _CORNERS).to(world_view_proj.device))
     h = math3d.transform_point(corners[None], world_view_proj[:, None])
     ndc = h[..., :3] / h[..., 3:4]
     xy = ndc[..., :2] * 0.5 + 0.5
@@ -59,7 +61,8 @@ def cull_volumes(per_object: PerObject, eye, viewport,
                  ray_sample_count_scale: float = 2.0) -> CullResult:
     """Batched CSVolumeCull. viewport: (2,) float (w, h) in pixels."""
     dev = per_object.world.device
-    viewport = torch.as_tensor(viewport, dtype=torch.float32, device=dev)
+    viewport = timing.host_read("cull.viewport", lambda: torch.as_tensor(
+        viewport, dtype=torch.float32, device=dev))
     v = project_corners(per_object.world_view_proj, viewport)  # (N,8,3)
 
     in_view = (((v[..., :2] >= 0.0) & (v[..., :2] <= viewport)).all(-1)
@@ -74,7 +77,9 @@ def cull_volumes(per_object: PerObject, eye, viewport,
          neg_vis[:, 1], pos_vis[:, 2], neg_vis[:, 2]], dim=-1)
 
     xy = v[..., :2]
-    e = xy[:, _EDGES[:, 1]] - xy[:, _EDGES[:, 0]]          # (N,12,2)
+    # each host index array is an upload that waits for the stream
+    e = (timing.host_read("cull.edges", lambda: xy[:, _EDGES[:, 1]])
+         - timing.host_read("cull.edges", lambda: xy[:, _EDGES[:, 0]]))
     max_edge = torch.linalg.norm(e, dim=-1).amax(-1)
 
     # LOD estimate (`EstimateCubeMapLOD`, `VolumeCull.hlsli:267-294`)
@@ -89,7 +94,8 @@ def cull_volumes(per_object: PerObject, eye, viewport,
     mip_level = torch.clamp(level, max=num_mips - 1)
 
     # projected coverage: visible-face quad areas
-    loops = xy[:, _FACE_LOOPS]                             # (N,6,4,2)
+    loops = timing.host_read("cull.face_loops",
+                             lambda: xy[:, _FACE_LOOPS])   # (N,6,4,2)
     e0 = loops[:, :, 1] - loops[:, :, 0]
     e1 = loops[:, :, 2] - loops[:, :, 1]
     e2 = loops[:, :, 3] - loops[:, :, 2]

@@ -24,11 +24,13 @@ gather composite and its per-pixel march; under the sweep,
 `adaptive_raymarch=False` marches every volume at full resolution in
 one B1 launch (`sweep.ray_march_view_sweep`).
 
-PyTorch runs eagerly, so there is no jit boundary. The main path reads
-no device value on the host except where the composite prep checks the
-swap flags; the reference marches read their done masks every few steps
-and the warp composite its branch flags once a volume. The light stacks
-of `state` are updated in place.
+PyTorch runs eagerly, so there is no jit boundary. The main path makes
+the host wait for the device only inside `utils.timing.host_read`, which
+counts and times each wait: the composite prep's check of the swap
+flags, the inverses' singularity checks and the small uploads from host
+memory that PyTorch follows with a stream sync; the reference marches
+read their done masks every few steps and the warp composite its branch
+flags once a volume. The light stacks of `state` are updated in place.
 
 With a device mesh (`render_frame(..., mesh=mesh)`, the state a
 `parallel.sharding.ShardedState`) the same passes run as the sharded
@@ -60,6 +62,7 @@ from multivolumes_tpu_torch.render import sweep as sweep_lib
 from multivolumes_tpu_torch.render import warp as warp_lib
 from multivolumes_tpu_torch.render.perframe import build_per_object
 from multivolumes_tpu_torch.scene.state import SceneState, to_light_sweep
+from multivolumes_tpu_torch.utils import timing
 
 
 class FrameOutput(NamedTuple):
@@ -93,16 +96,31 @@ def render_frame(state: SceneState, camera: Camera, config: RenderConfig,
     image and hdr channel-leading, the image tone-mapped inside the TAA
     resolve. `impl` forces the kernels' side (see `ops`); `timer`, if
     given, is called with each pass name as the pass starts and with None
-    at the end. With `mesh` (a `parallel.collectives.DeviceMesh`), `state`
-    is a `ShardedState` on that mesh and so is the returned state; the
-    image and hdr are assembled on `mesh.root`."""
+    at the end; the frame's spans (`utils.timing.SPANS`) are recorded at
+    the same marks, under the state's frame index. With `mesh` (a
+    `parallel.collectives.DeviceMesh`), `state` is a `ShardedState` on
+    that mesh and so is the returned state; the image and hdr are
+    assembled on `mesh.root`."""
     check_supported(config)
-    width, height = config.width, config.height
-    mark = timer if timer is not None else (lambda name: None)
     show_mesh = config.show_mesh if show_mesh is None else show_mesh
-    if mesh is not None:
-        return _render_frame_sharded(state, camera, config, mesh, show_mesh,
-                                     use_taa, planar, impl, mark)
+
+    def mark(name):
+        timing.SPANS.mark(name, timer)
+
+    with timing.SPANS.frame(state.frame_idx):
+        if mesh is not None:
+            return _render_frame_sharded(state, camera, config, mesh,
+                                         show_mesh, use_taa, planar, impl,
+                                         mark)
+        return _render_frame_local(state, camera, config, show_mesh,
+                                   use_taa, planar, impl, mark)
+
+
+def _render_frame_local(state: SceneState, camera: Camera,
+                        config: RenderConfig, show_mesh: bool, use_taa: bool,
+                        planar: bool, impl, mark) -> FrameOutput:
+    """The frame on one device (`render_frame` without a device mesh)."""
+    width, height = config.width, config.height
     has_mesh = bool(show_mesh and state.mesh_indices.shape[0] > 1)
 
     mark("prep")
@@ -129,20 +147,24 @@ def render_frame(state: SceneState, camera: Camera, config: RenderConfig,
     if config.light_mode == "sweep" and not config.point_light:
         # refresh one cohort round-robin (config.light_refresh)
         ids = _cohort(config, state.frame_idx, dev)
+        # an axis the engine did not bake is read from the device
         axis = (config.light_axis if config.light_axis is not None
-                else lightsweep.light_axis(state.light_pos))
-        maps_c, light_sout = lightsweep.ray_march_light_sweep_update(
-            state.rho_light, state.ao_static, state.grad_dir,
-            state.vol_tex_ids, per_object, state.light_pos,
-            state.light_color, state.ambient, state.sh_coeffs,
-            config.max_light_samples, axis,
-            has_light_probe=config.has_light_probe, sub_ids=ids,
-            sout_cache=state.light_sout, impl=impl,
-            shadow_map=mesh_out.shadow if has_mesh else None,
-            shadow_vp=mesh_out.shadow_vp if has_mesh else None)
-        state.light_maps[ids] = maps_c.to(state.light_maps.dtype)
-        state.light_sweep[ids] = to_light_sweep(maps_c,
-                                                state.light_sweep.dtype)
+                else timing.host_read("light.axis", lambda: (
+                    lightsweep.light_axis(state.light_pos))))
+        with timing.span("light.update"):
+            maps_c, light_sout = lightsweep.ray_march_light_sweep_update(
+                state.rho_light, state.ao_static, state.grad_dir,
+                state.vol_tex_ids, per_object, state.light_pos,
+                state.light_color, state.ambient, state.sh_coeffs,
+                config.max_light_samples, axis,
+                has_light_probe=config.has_light_probe, sub_ids=ids,
+                sout_cache=state.light_sout, impl=impl,
+                shadow_map=mesh_out.shadow if has_mesh else None,
+                shadow_vp=mesh_out.shadow_vp if has_mesh else None)
+        with timing.span("light.store"):
+            state.light_maps[ids] = maps_c.to(state.light_maps.dtype)
+            state.light_sweep[ids] = to_light_sweep(
+                maps_c, state.light_sweep.dtype)
     else:
         # reference semantics: the gather march of one volume a frame;
         # its row of the sweep's stack follows
@@ -594,7 +616,8 @@ def _sweep_light_sharded(config, mesh, rep, hosted, by_d, tex_ids,
     ids_host = _cohort(config, frame_idx)
     nl = config.num_volumes // mesh.n_volumes_axis
     axis = (config.light_axis if config.light_axis is not None
-            else lightsweep.light_axis(rep[mesh.root].light_pos))
+            else timing.host_read("light.axis", lambda: (
+                lightsweep.light_axis(rep[mesh.root].light_pos))))
     if shard_light:
         sout_all = coll.all_gather([s.light_sout for s in by_d], 0, mesh,
                                    "light_sout")

@@ -30,6 +30,7 @@ rows axis the raster and the shade run in row bands
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -39,6 +40,7 @@ from multivolumes_tpu_torch.config import RenderConfig, SharedConsts
 from multivolumes_tpu_torch.core import math3d, sh as sh_lib
 from multivolumes_tpu_torch.core.camera import Camera
 from multivolumes_tpu_torch.core.halton import halton_jitter
+from multivolumes_tpu_torch.utils import timing
 
 _ZQ = float(1 << 24)  # depth quantization of the z-buffer
 _BIG = 0xFFFFFFFF     # empty / dead-sample sentinel (uint32 max, in int64)
@@ -218,19 +220,20 @@ def shadow_view_proj(state) -> torch.Tensor:
     zNear 1, zFar 200."""
     dev = state.light_pos.device
     size = state.scene_size * 1.5
-    # focus and up made on the device: a host list would be a copy that
-    # waits for the stream
+    # focus and up made on the device; each host scalar written into a
+    # device tensor is still an upload that waits for the stream
     up = torch.zeros(3, device=dev)
-    up[1] = 1.0
+    timing.host_read("mesh.shadow_up",
+                     functools.partial(up.__setitem__, 1, 1.0))
     view = math3d.look_at_lh(state.light_pos[:3],
                              torch.zeros(3, device=dev), up)
     q = 1.0 / (200.0 - 1.0)
     proj = torch.zeros((4, 4), dtype=torch.float32, device=dev)
     proj[0, 0] = 2.0 / size
     proj[1, 1] = 2.0 / size
-    proj[2, 2] = q
-    proj[3, 2] = -q * 1.0
-    proj[3, 3] = 1.0
+    for at, v in (((2, 2), q), ((3, 2), -q * 1.0), ((3, 3), 1.0)):
+        timing.host_read("mesh.shadow_proj",
+                         functools.partial(proj.__setitem__, at, v))
     return view @ proj
 
 
@@ -773,21 +776,24 @@ def render_mesh(state, camera: Camera, config: RenderConfig) -> MeshOutput:
     a device mesh: `render_mesh_sharded`."""
     width, height = config.width, config.height
     dev = state.mesh_verts.device
-    op = _frame_operands(state, camera, config)
-    depth, tri_id = rasterize(
-        op.clip_jit, state.mesh_indices, width, height,
-        dense_window=(config.mesh_shade_window if _window_fits(config)
-                      else None), **op.raster_kw)
-    shade = _shader(state, camera, config, op)
-    if _shade_window(config):
-        ys, xs = _window(op, config, dev)
-        col, vel, valid = _paste(
-            shade(tri_id[ys[:, None], xs[None, :]], xs, ys), ys, xs, height,
-            width, dev)
-    else:
-        col, vel, valid = shade(
-            tri_id, torch.arange(width, device=dev),
-            torch.arange(height, device=dev))
+    with timing.span("mesh.operands"):
+        op = _frame_operands(state, camera, config)
+    with timing.span("mesh.raster"):
+        depth, tri_id = rasterize(
+            op.clip_jit, state.mesh_indices, width, height,
+            dense_window=(config.mesh_shade_window if _window_fits(config)
+                          else None), **op.raster_kw)
+    with timing.span("mesh.shade"):
+        shade = _shader(state, camera, config, op)
+        if _shade_window(config):
+            ys, xs = _window(op, config, dev)
+            col, vel, valid = _paste(
+                shade(tri_id[ys[:, None], xs[None, :]], xs, ys), ys, xs,
+                height, width, dev)
+        else:
+            col, vel, valid = shade(
+                tri_id, torch.arange(width, device=dev),
+                torch.arange(height, device=dev))
     return MeshOutput(color=col, valid=valid, velocity=vel, depth=depth,
                       shadow=state.mesh_shadow_map, shadow_vp=op.s_vp,
                       new_prev_wvp=op.wvp, screen_center=op.center)

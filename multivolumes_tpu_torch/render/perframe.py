@@ -11,6 +11,8 @@ from typing import NamedTuple
 
 import torch
 
+from multivolumes_tpu_torch.core import math3d
+
 
 class PerObject(NamedTuple):
     world_view_proj: torch.Tensor    # (N, 4, 4)
@@ -26,5 +28,5 @@ class PerObject(NamedTuple):
 def build_per_object(volume_worlds, view_proj) -> PerObject:
     """(N,4,4), (4,4) -> PerObject."""
     wvp = volume_worlds @ view_proj
-    return PerObject(wvp, torch.linalg.inv(wvp),
-                     torch.linalg.inv(volume_worlds), volume_worlds)
+    return PerObject(wvp, math3d.inverse(wvp), math3d.inverse(volume_worlds),
+                     volume_worlds)

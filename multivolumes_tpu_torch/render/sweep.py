@@ -37,6 +37,7 @@ from multivolumes_tpu_torch.render.raymarch import (
     FLT_MAX, CubeMaps, _safe, _transform_point_soa, compute_ray_origin_soa,
     get_local_pos_soa, get_t_max_soa)
 from multivolumes_tpu_torch.render.warp import catmull_swap_flags
+from multivolumes_tpu_torch.utils import timing
 
 
 def eye_to_face_frames(eye_local):
@@ -246,8 +247,10 @@ def bucket_mips(cull: CullResult, ids, mip_b: int, max_mip: int):
     floored by the bucket's level."""
     actual = torch.clamp(cull.mip_level[ids], 0, max_mip)
     scheme_off = (~cull.use_cube_map[ids]).int()
-    return torch.clamp(torch.maximum(actual + scheme_off,
-                                     torch.tensor(mip_b, device=ids.device)),
+    # the host int made a device tensor: an upload that waits
+    floor = timing.host_read("sweep.bucket_mip", lambda: torch.tensor(
+        mip_b, device=ids.device))
+    return torch.clamp(torch.maximum(actual + scheme_off, floor),
                        mip_b, max_mip).int()
 
 
@@ -315,27 +318,30 @@ def ray_march_view_sweep_lod(
     dev = volumes_sweep.device
     eye_local = math3d.transform_point3(eye, per_object.world_i)
     eye_faces = eye_to_face_frames(eye_local)
-    order, buckets = lod_partition(cull, n, s, bucket_caps)
-    max_mip = max((s // 8).bit_length() - 1, 0)
+    with timing.span("sweep.partition"):
+        order, buckets = lod_partition(cull, n, s, bucket_caps)
+        max_mip = max((s // 8).bit_length() - 1, 0)
 
-    mips = torch.zeros((n,), dtype=torch.int32, device=dev)
-    bucket_ids, n_effs = [], []
-    for (b0, count, _size_b, mip_b) in buckets:
-        ids = order[b0:b0 + count]
-        eff_mip = bucket_mips(cull, ids, mip_b, max_mip)
-        mips[ids] = eff_mip
-        bucket_ids.append(ids)
-        n_effs.append((s >> eff_mip).float())
+        mips = torch.zeros((n,), dtype=torch.int32, device=dev)
+        bucket_ids, n_effs = [], []
+        for (b0, count, _size_b, mip_b) in buckets:
+            ids = order[b0:b0 + count]
+            eff_mip = bucket_mips(cull, ids, mip_b, max_mip)
+            mips[ids] = eff_mip
+            bucket_ids.append(ids)
+            n_effs.append((s >> eff_mip).float())
 
-    swap = None
-    if swap_basis is not None:
-        # one shared function with the tile prep (warp.catmull_swap_flags),
-        # over every sorted row at once: the prep recomputes exactly this
-        n_eff_sorted = torch.cat(n_effs)
-        po_sorted = per_object.take(order)
-        swap = catmull_swap_flags(
-            swap_basis, po_sorted.world_i, po_sorted.world_view_proj,
-            math3d.transform_point3(eye, po_sorted.world_i), n_eff_sorted)
+        swap = None
+        if swap_basis is not None:
+            # one shared function with the tile prep
+            # (warp.catmull_swap_flags), over every sorted row at once: the
+            # prep recomputes exactly this
+            n_eff_sorted = torch.cat(n_effs)
+            po_sorted = per_object.take(order)
+            swap = catmull_swap_flags(
+                swap_basis, po_sorted.world_i, po_sorted.world_view_proj,
+                math3d.transform_point3(eye, po_sorted.world_i),
+                n_eff_sorted)
 
     if pack:
         color = torch.zeros((n, 6, 2, s, s), dtype=torch.float32,
@@ -351,33 +357,34 @@ def ray_march_view_sweep_lod(
         occl_depth = _pool2_max(depth_map)
     for (b0, count, size_b, _mip_b), ids, n_eff_v in zip(
             buckets, bucket_ids, n_effs):
-        rows = slice(b0, b0 + count) if sorted_output else ids
-        sw = None if swap is None else swap[b0:b0 + count, :, None, None]
-        s_max_b = None
-        if depth_map is not None:
-            s_max_b, depth_b = bucket_occlusion(
-                per_object, eye_local, occl_depth, ids, size_b, n_eff_v)
+        with timing.span("sweep.bucket"):
+            rows = slice(b0, b0 + count) if sorted_output else ids
+            sw = None if swap is None else swap[b0:b0 + count, :, None, None]
+            s_max_b = None
+            if depth_map is not None:
+                s_max_b, depth_b = bucket_occlusion(
+                    per_object, eye_local, occl_depth, ids, size_b, n_eff_v)
+                if sw is not None:
+                    depth_b = unproject_z(depth_b.float())
+                    depth_b = torch.where(sw, depth_b.transpose(-1, -2),
+                                          depth_b)
+                cube_depth[rows, :, :size_b, :size_b] = depth_b
+            eye_f_b, params, smp, run = bucket_march_args(
+                cull, eye_faces, ids, size_b, n_eff_v, s_max=s_max_b)
+            scatter = sweep_march(
+                volumes_sweep, light_sweep, vol_tex_ids[ids], eye_f_b, params,
+                smp, run, size_b, size_b, n_eff_b=n_eff_v, light_ids=ids,
+                vol_zmax=vol_zmax, impl=impl)       # (count, 6, 4, Sb, Sb)
+            scatter[:, :, :3] *= 1.0 / (2.0 * math.pi)
+            scatter = scatter * run[:, :, None, None, None]
+            if pack:
+                out_b = pack_cube_f16(scatter)
+            else:
+                out_b = scatter.to(volumes_sweep.dtype)
             if sw is not None:
-                depth_b = unproject_z(depth_b.float())
-                depth_b = torch.where(sw, depth_b.transpose(-1, -2),
-                                      depth_b)
-            cube_depth[rows, :, :size_b, :size_b] = depth_b
-        eye_f_b, params, smp, run = bucket_march_args(
-            cull, eye_faces, ids, size_b, n_eff_v, s_max=s_max_b)
-        scatter = sweep_march(
-            volumes_sweep, light_sweep, vol_tex_ids[ids], eye_f_b, params,
-            smp, run, size_b, size_b, n_eff_b=n_eff_v, light_ids=ids,
-            vol_zmax=vol_zmax, impl=impl)       # (count, 6, 4, Sb, Sb)
-        scatter[:, :, :3] *= 1.0 / (2.0 * math.pi)
-        scatter = scatter * run[:, :, None, None, None]
-        if pack:
-            out_b = pack_cube_f16(scatter)
-        else:
-            out_b = scatter.to(volumes_sweep.dtype)
-        if sw is not None:
-            out_b = torch.where(sw[:, :, None], out_b.transpose(-1, -2),
-                                out_b)
-        color[rows, :, :, :size_b, :size_b] = out_b
+                out_b = torch.where(sw[:, :, None], out_b.transpose(-1, -2),
+                                    out_b)
+            color[rows, :, :, :size_b, :size_b] = out_b
     if not sorted_output:
         order = torch.arange(n, device=dev)
     return SortedSweep(CubeMaps(color=color, depth=cube_depth), mips, order,

@@ -19,6 +19,7 @@ from multivolumes_tpu_torch.render.composite import unproject_z
 from multivolumes_tpu_torch.render.cull import CullResult
 from multivolumes_tpu_torch.render.perframe import PerObject
 from multivolumes_tpu_torch.render.raymarch import CubeMaps
+from multivolumes_tpu_torch.utils import timing
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -78,8 +79,9 @@ def _tile_prep(cube_maps: CubeMaps, per_object: PerObject, cull: CullResult,
         a_mat, per_object.world_i, per_object.world_view_proj, eye_local,
         n_eff)
     if swap_sorted is not None:
-        if swap_sorted.shape != swap_nf.shape or not torch.equal(
-                swap_sorted.to(torch.bool), swap_nf):
+        if swap_sorted.shape != swap_nf.shape or not timing.host_read(
+                "composite.swap_check", lambda: torch.equal(
+                    swap_sorted.to(torch.bool), swap_nf)):
             raise ValueError("the sweep's Catmull-Smith swap flags differ "
                              "from the composite's: faces would be warped "
                              "in the wrong orientation")
@@ -116,9 +118,9 @@ def _tile_prep(cube_maps: CubeMaps, per_object: PerObject, cull: CullResult,
     th, tw, hp, wp = tile_dims(width, height)
     hp = _ceil_to(hp, th * rows_mult)
     tiles_x, tiles_y = wp // tw, hp // th
-    corners = torch.tensor(
+    corners = timing.host_read("composite.corners", lambda: torch.tensor(
         [[x, y, z] for x in (-1.0, 1.0) for y in (-1.0, 1.0)
-         for z in (-1.0, 1.0)], dtype=torch.float32, device=dev)
+         for z in (-1.0, 1.0)], dtype=torch.float32, device=dev))
     ch_ = math3d.transform_point(corners[None], wvp[:, None])  # (N, 8, 4)
     cok = ch_[..., 3] > 1e-3
     chw = torch.clamp(ch_[..., 3], min=1e-3)
@@ -159,14 +161,16 @@ def composite_oit_tile(cube_maps: CubeMaps, per_object: PerObject,
                        impl: str | None = None):
     """Full OIT composite through kernel B2 (its depth variant when the
     frame has a scene depth) -> (r, g, b, a) fields."""
-    (color_sel, depth_sel, scene, tlist, counts, vol_flt, face_flt, _s, th,
-     tw, tiles_x, k_layers) = _tile_prep(
-        cube_maps, per_object, cull, eye, screen_to_world, width, height,
-        num_layers=num_layers, order=order, swap_sorted=swap_sorted,
-        depth_map=depth_map)
-    out = tile_composite(color_sel, scene, tlist, counts, vol_flt, face_flt,
-                         th, tw, tiles_x, k_layers, width, height,
-                         depth_sel=depth_sel, impl=impl)
+    with timing.span("composite.prep"):
+        (color_sel, depth_sel, scene, tlist, counts, vol_flt, face_flt, _s,
+         th, tw, tiles_x, k_layers) = _tile_prep(
+            cube_maps, per_object, cull, eye, screen_to_world, width, height,
+            num_layers=num_layers, order=order, swap_sorted=swap_sorted,
+            depth_map=depth_map)
+    with timing.span("composite.kernel"):
+        out = tile_composite(color_sel, scene, tlist, counts, vol_flt,
+                             face_flt, th, tw, tiles_x, k_layers, width,
+                             height, depth_sel=depth_sel, impl=impl)
     out = out[:, :height, :width]
     return out[0], out[1], out[2], out[3]
 

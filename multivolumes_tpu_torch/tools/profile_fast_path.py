@@ -2,11 +2,11 @@
 
 Counterpart of the repository's `tools/profile_fast_path.py`: at the
 demo's scale (or `--small`) it prints `utils.timing.profile_frame` (the
-median over `--iters` frames of each pass's stream time, CUDA events at
-the frame's marks) and `utils.timing.time_fn` of the whole frame step
-(`--iters` frames dispatched back to back, one sync). Both are stream
-time, idle gaps included: the frame is host-bound, and
-`tools/trace_ops.py` gives the device busy time of each pass.
+median over `--iters` frames of each pass's host ms, from the frame's
+spans) and `utils.timing.time_fn` of the whole frame step (`--iters`
+frames dispatched back to back, one sync; stream time, idle gaps
+included). The frame is host-bound; `tools/trace_ops.py` gives the
+device busy time of each pass.
 
     python -m multivolumes_tpu_torch.tools.profile_fast_path [--volumes 64]
         [--small] [--iters 8] [--cpu]

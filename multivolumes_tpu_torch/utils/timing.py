@@ -1,11 +1,19 @@
-"""Timing and profiling helpers.
+"""Timing and profiling helpers, and the frame's span recorder.
 
 Counterpart of `multivolumes_tpu/utils/timing.py`. On the card a sync is
 `torch.cuda.synchronize` and timings are CUDA events around work that is
 dispatched without a sync in between; on the CPU they are the host clock.
-The port's frame is one eager function that marks its passes
-(`render_frame(timer=)`), so `profile_frame` times the real frame's
-passes instead of re-running each pass alone as the JAX one does.
+
+`SPANS` records, on the host clock, every `render_frame` call: one
+`frame` span keyed by the state's frame index, a `pass` span between
+each of the frame's marks (`render_frame(timer=)`), `step` spans
+(`span(name)`) inside the passes that hold most of the host time, and a
+`sync` span around each place the frame makes the host wait for the
+device (`host_read(site, fn)`). It keeps the last `KEEP_FRAMES` frames
+in memory and writes nothing out. While a `torch.profiler` records, each
+span of a frame also opens a `record_function` range `span:<name>`, so a
+device trace places its kernels and idle gaps in the program's spans on
+its own clock (`tools/trace_ops.py`).
 """
 
 from __future__ import annotations
@@ -21,6 +29,168 @@ import torch
 
 TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "trace"
 TRACE_FILE = "trace.json"
+
+SPAN_PREFIX = "span:"   # the profiler ranges of the recorder's spans
+_now = time.perf_counter_ns
+KEEP_FRAMES = 4096      # frames the recorder keeps, the newest
+
+
+class FrameRecord:
+    """The spans of one `render_frame` call, in the order they opened;
+    `spans[0]` is the frame span. A span is a list [name, kind, parent,
+    start_ns, end_ns]: `parent` the index of the enclosing span (-1 for
+    the frame span), the times `time.perf_counter_ns` (`end_ns` 0 while
+    open)."""
+
+    __slots__ = ("index", "spans")
+
+    def __init__(self, index: int):
+        self.index, self.spans = index, []
+
+    def ms(self, kind: str) -> dict:
+        """{name: summed ms} of the spans of `kind`, in first-open order
+        (a pass the sharded step runs once per device sums its runs)."""
+        out = {}
+        for name, k, _parent, t0, t1 in self.spans:
+            if k == kind:
+                out[name] = out.get(name, 0.0) + (t1 - t0) / 1e6
+        return out
+
+    def self_ms(self, kind: str) -> dict:
+        """{name: summed self ms} of the spans of `kind`: each span's
+        duration less its children's."""
+        child = [0] * len(self.spans)
+        for _name, _k, parent, t0, t1 in self.spans:
+            if parent >= 0:
+                child[parent] += t1 - t0
+        out = {}
+        for (name, k, _parent, t0, t1), c in zip(self.spans, child):
+            if k == kind:
+                out[name] = out.get(name, 0.0) + (t1 - t0 - c) / 1e6
+        return out
+
+    def count(self, kind: str) -> int:
+        return sum(1 for s in self.spans if s[1] == kind)
+
+
+class _Step:
+    """`with` block of one step span; nothing is recorded outside a
+    frame."""
+
+    __slots__ = ("rec", "name", "i")
+
+    def __init__(self, rec, name: str):
+        self.rec, self.name = rec, name
+
+    def __enter__(self):
+        self.i = (-1 if self.rec.current is None
+                  else self.rec._open(self.name, "step"))
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if self.i >= 0:
+            self.rec._close(self.i, _now())
+
+
+class SpanRecorder:
+    """The frame records of one process, by frame index, the newest
+    `keep`; `current` is the open frame's record, None between frames.
+    A frame index recorded again replaces its older record. Spans nest by
+    `with` blocks and pass marks; a `sync` span has no children."""
+
+    def __init__(self, keep: int = KEEP_FRAMES):
+        self.keep = keep
+        self.frames = {}
+        self.current = None
+        self._stack = []            # open spans of `current`, innermost last
+        self._pass = -1             # the open pass span
+        self._ranges = None         # {span: its profiler range} if profiled
+
+    def last(self):
+        """The newest frame record, or None."""
+        return next(reversed(self.frames.values()), None)
+
+    @contextlib.contextmanager
+    def frame(self, index: int):
+        """One frame: its record, its frame span and, while a profiler
+        records, its `span:` ranges (checked once, here)."""
+        rec = FrameRecord(index)
+        self.current, self._stack, self._pass = rec, [], -1
+        self._ranges = ({} if torch.autograd.profiler._is_profiler_enabled
+                        else None)
+        self._open("frame", "frame")
+        try:
+            yield rec
+        finally:
+            self._close(0, _now())
+            self.frames.pop(index, None)
+            self.frames[index] = rec
+            while len(self.frames) > self.keep:
+                del self.frames[next(iter(self.frames))]
+            self.current, self._pass, self._ranges = None, -1, None
+
+    def mark(self, name, timer=None) -> None:
+        """A pass boundary: close the open pass and open pass `name` (None
+        opens none) at one time stamp. `timer(name)`, if given, is called
+        in between, so that profiler ranges it closes and opens there nest
+        with the `span:` ranges."""
+        now = _now()
+        if self._pass >= 0:
+            self._close(self._pass, now)
+            self._pass = -1
+        if timer is not None:
+            timer(name)
+        if name is not None and self.current is not None:
+            self._pass = self._open(name, "pass", now)
+
+    def host_read(self, site: str, fn):
+        """`fn()` inside a `sync` span named `site`."""
+        if self.current is None:
+            return fn()
+        i = self._open(site, "sync")
+        try:
+            return fn()
+        finally:
+            self._close(i, _now())
+
+    def _open(self, name: str, kind: str, now: int = 0) -> int:
+        spans, stack = self.current.spans, self._stack
+        i = len(spans)
+        spans.append([name, kind, stack[-1] if stack else -1,
+                      now or _now(), 0])
+        stack.append(i)
+        if self._ranges is not None:
+            r = torch.autograd.profiler.record_function(SPAN_PREFIX + name)
+            r.__enter__()
+            self._ranges[i] = r
+        return i
+
+    def _close(self, i: int, now: int) -> None:
+        """Close span `i` and every span still open inside it."""
+        spans, stack = self.current.spans, self._stack
+        while stack and stack[-1] >= i:
+            j = stack.pop()
+            spans[j][4] = now
+            if self._ranges is not None:
+                self._ranges.pop(j).__exit__(None, None, None)
+
+
+SPANS = SpanRecorder()
+
+
+def span(name: str) -> _Step:
+    """`with span(name):` records a step span of the open frame."""
+    return _Step(SPANS, name)
+
+
+def host_read(site: str, fn):
+    """Run `fn`, which makes the host wait for the device, inside a `sync`
+    span named `site`: a read of a device value, or an upload from
+    pageable host memory (a scalar or a host array written into a device
+    tensor), which PyTorch follows with a stream synchronisation. Every
+    such place on the frame's main path goes through here, so the frame
+    records count its host syncs and time each wait."""
+    return SPANS.host_read(site, fn)
 
 
 def _leaves(tree):
@@ -115,16 +285,15 @@ def profile_trace(log_dir=None):
 
 def profile_frame(state, camera, config, iters: int = 3,
                   mesh=None) -> dict:
-    """Per-pass ms of `iters` frames of `render_frame` from `state` ->
+    """Per-pass host ms of `iters` frames of `render_frame` from `state` ->
     {pass: median ms}. The light stacks of `state` advance in place as
     the frames do.
 
-    Each pass is the interval between the frame's marks (`timer=`): CUDA
-    events on the card, the host clock on the CPU (where an op's work is
-    done when it returns). On the card this is stream time, not busy
-    time: the frame is host-bound, so an interval holds the device's idle
-    gaps between launches; `tools/trace_ops.py` gives the device busy
-    time per pass.
+    Each pass is its `pass` span in the frame's record (`SPANS`): the host
+    time from the pass's mark to the next, on the card as on the CPU,
+    the waits of its host syncs included. The device's busy time per
+    pass comes from `tools/trace_ops.py`. Each frame is waited for before
+    the next, so no frame's syncs wait for an earlier one.
 
     The keys are the port's pass names; the JAX `profile_frame`'s keys
     time the same work as separate jits: `prep` ~ `cull`; `mesh` (with
@@ -134,24 +303,13 @@ def profile_frame(state, camera, config, iters: int = 3,
     `tonemap` (the display map)."""
     from multivolumes_tpu_torch.render import frame as frame_lib
 
-    cuda = camera.view_proj.is_cuda
     per = {}
+    sync(state)
     for _ in range(iters):
-        stamps = []
-
-        def mark(name):
-            if cuda:
-                ev = torch.cuda.Event(enable_timing=True)
-                ev.record()
-                stamps.append((name, ev))
-            else:
-                stamps.append((name, time.perf_counter()))
-
-        out = frame_lib.render_frame(state, camera, config, mesh=mesh,
-                                     timer=mark)
+        index = state.frame_idx
+        out = frame_lib.render_frame(state, camera, config, mesh=mesh)
         state = out.state
         sync(out.image)
-        for (name, a), (_n, b) in zip(stamps, stamps[1:]):
-            ms = a.elapsed_time(b) if cuda else (b - a) * 1e3
+        for name, ms in SPANS.frames[index].ms("pass").items():
             per.setdefault(name, []).append(ms)
     return {name: statistics.median(v) for name, v in per.items()}

@@ -133,15 +133,15 @@ def test_trace_ops_parses_a_cpu_trace_into_passes(tmp_path):
 
 def test_trace_ops_ties_each_kernel_to_the_pass_that_launched_it():
     """A kernel that runs during the next pass's range counts for the pass
-    whose range holds its launch; one whose launch is outside every range,
-    or unknown, is unattributed."""
+    whose range holds its launch (the program's `span:` ranges); one whose
+    launch is outside every range, or unknown, is unattributed."""
     def x(name, cat, ts, dur, **args):
         return {"ph": "X", "name": name, "cat": cat, "ts": ts, "dur": dur,
                 "args": args}
 
     events = [
-        x("pass:light", "user_annotation", 0.0, 100.0),
-        x("pass:sweep", "user_annotation", 100.0, 100.0),
+        x("span:light", "user_annotation", 0.0, 100.0),
+        x("span:sweep", "user_annotation", 100.0, 100.0),
         x("cudaLaunchKernelExC", "cuda_runtime", 50.0, 5.0, correlation=1),
         x("cuLaunchKernel", "cuda_driver", 120.0, 5.0, correlation=2),
         x("cudaLaunchKernel", "cuda_runtime", 250.0, 5.0, correlation=3),
