@@ -29,7 +29,10 @@ Phases (any failure exits non-zero, and no result line is printed):
      demo's light is above the volumes and the mesh lies low, so there it
      may shadow none; B1 on the first four volumes of the frame's S=128
      bucket and on the whole S=128, S=64 and S=32
-     buckets; B3 and B4 also at the full refresh's 64 volumes), with
+     buckets; B7, each bucket's prologue, on the same three buckets of
+     the frame without and with the mesh (the depth bound and the tile
+     composite's cube depth), every output within 1e-6 relative; B3 and
+     B4 also at the full refresh's 64 volumes), with
      the parity tolerance of the kernel's card test; times of both from
      CUDA events after warm-up, each kernel's bound (below), for B1, B2,
      B2', the B2 band, B4, B5, B5' and B6 the device time of the kernels
@@ -179,6 +182,9 @@ _CSRC = "multivolumes_tpu_torch/csrc/"
 _PALLAS = "multivolumes_tpu/ops/pallas/"
 KERNELS = {
     "sweep": (_CSRC + "sweep.cu", _PALLAS + "sweep_kernel.py:318"),
+    # B7 replaces no Pallas kernel: the JAX frame's bucket prologue in XLA
+    "sweep_prologue": (_CSRC + "sweep_prep.cu",
+                       "multivolumes_tpu/render/sweep.py:673"),
     "composite": (_CSRC + "composite.cu", _PALLAS + "composite_kernel.py:691"),
     "composite_depth": (_CSRC + "composite.cu",
                         _PALLAS + "composite_kernel.py:691"),
@@ -198,11 +204,13 @@ KERNELS = {
                         "tools/raster_bin_microbench.py:172"),
 }
 # the kernels of the frame without and with the opaque mesh
-NO_MESH = ("sweep", "composite", "light_self_scan", "light_advect_mul", "taa")
-WITH_MESH = ("sweep", "composite_depth", "light_self_scan_sm",
-             "light_advect_mul", "taa")
+NO_MESH = ("sweep", "sweep_prologue", "composite", "light_self_scan",
+           "light_advect_mul", "taa")
+WITH_MESH = ("sweep", "sweep_prologue", "composite_depth",
+             "light_self_scan_sm", "light_advect_mul", "taa")
 # summary row name -> (launch-count key, the path whose counts it reports)
 ROW_KERNEL = {"sweep@unbucketed": ("sweep", "unbucketed"),
+              "sweep_prologue@depth": ("sweep_prologue", "mesh"),
               "composite@depth": ("composite_depth", "mesh"),
               "light_self_scan@sm": ("light_self_scan_sm", "mesh"),
               "composite@band": ("composite_band", "sharded"),
@@ -233,7 +241,8 @@ SETTINGS_SHARDED = {
                         False, ("sweep", "light_self_scan",
                                 "light_advect_mul", "taa_band")),
     "point light": (dict(point_light=True), False,
-                    ("sweep", "composite_band", "taa_band")),
+                    ("sweep", "sweep_prologue", "composite_band",
+                     "taa_band")),
     "reference": (dict(march_mode="reference", light_mode="reference",
                        composite_mode="gather"), False, ("taa_band",)),
     "unbucketed tile, torus": (dict(lod_bucket_caps=None), True,
@@ -450,6 +459,68 @@ def bound_sweep(args, kwargs):
               + counts["light_texels"] * 3 * light.element_size()
               + _nbytes(*params) + out)
     return nbytes, 14.0 * float(counts["needed"].sum())
+
+
+def bound_prologue(args, kwargs):
+    """B7: the ray operands written once (s_in, s_end, ray_len f32 and
+    active u8 a ray), the per-volume operands read once and, with the
+    depth map, the cube depth written once and the depth map's texels
+    under the coarse taps read once (at most the whole map); operations:
+    the ray parameters' formula (40 f32 operations a ray) and, with the
+    depth map, each coarse texel's occlusion bound (100)."""
+    from multivolumes_tpu_torch.ops.sweep_prep import depth_blocks
+
+    ids, size_b = args[3], args[5]
+    count = ids.shape[0]
+    rays = count * 6 * size_b * size_b
+    nbytes = rays * 13 + count * (8 + 4 + 6 * 3 * 4 + 2 * 16 * 4)
+    flops = 40.0 * rays
+    depth = kwargs.get("depth_map")
+    if depth is not None:
+        f = 4 if size_b >= 64 else 2 if size_b >= 32 else 1
+        coarse = count * 6 * (size_b // f) ** 2
+        block = depth_blocks(tuple(depth.shape), size_b)
+        nbytes += rays * 4 + min(coarse * block * block, depth.numel()) * 4
+        flops += 100.0 * coarse
+    return nbytes, flops
+
+
+def prologue_rows(calls, prefix):
+    """B7 against its plain version on the frame's calls, one a LOD bucket
+    (S, S/2, S/4): the `<prefix>S<size>` rows, every output within 1e-6
+    relative (the cube depth into a buffer of each side's own, filled as
+    the sweep fills it)."""
+    import torch
+
+    from multivolumes_tpu_torch.config import SharedConsts
+    from multivolumes_tpu_torch.ops import sweep_prep
+
+    rows = []
+    for a, k in calls:
+        k = {key: v for key, v in k.items() if key != "impl"}
+        cubes = {}
+
+        def run(*pa, impl, _cubes=cubes, **pk):
+            cube = pk.get("cube_depth")
+            if cube is not None:
+                if impl not in _cubes:
+                    _cubes[impl] = torch.full_like(
+                        cube, SharedConsts.Z_FAR if pk.get("swap") is not None
+                        else 1.0)
+                pk = dict(pk, cube_depth=_cubes[impl])
+            out = tuple(sweep_prep.sweep_prologue(*pa, impl=impl, **pk))
+            return out if cube is None else out + (_cubes[impl],)
+
+        name = f"{prefix}S{a[5]}"
+        dm = k.get("depth_map")
+        log(f"[kernel] {name}: {a[3].shape[0]} volumes, depth map "
+            f"{None if dm is None else tuple(dm.shape)}")
+        rows.append(compare_kernel(
+            name, run, a, k, allclose_tol(0.0, 1e-6, name), bound_prologue,
+            reps=(20, 2), device_kernel="sweep_prologue_kernel"))
+    check([r["name"][len(prefix):] for r in rows] == ["S128", "S64", "S32"],
+          f"B7 rows {[r['name'] for r in rows]}")
+    return rows
 
 
 def bound_composite(args, kwargs):
@@ -698,6 +769,7 @@ def phase_kernels(cfg, dev):
     from multivolumes_tpu_torch.engine import MultiRayCaster
     from multivolumes_tpu_torch.ops import lightsweep as light_ops
     from multivolumes_tpu_torch.ops import sweep as sweep_ops
+    from multivolumes_tpu_torch.ops import sweep_prep
     from multivolumes_tpu_torch.ops import taa as taa_ops
     from multivolumes_tpu_torch.render import frame as frame_lib
     from multivolumes_tpu_torch.render import sweep as sweep_mod
@@ -715,6 +787,7 @@ def phase_kernels(cfg, dev):
             for i in range(3)]
     probe = clone_state(engine.state)
     with capture(targets + [(sweep_mod, "sweep_march"),
+                            (sweep_prep, "sweep_prologue"),
                             (tile_mod, "tile_composite")]) as frame_calls:
         probe = frame_lib.render_frame(probe, cams[0], engine.config).state
     probe = frame_lib.render_frame(probe, cams[1], engine.config).state
@@ -755,6 +828,9 @@ def phase_kernels(cfg, dev):
           == ["sweep", f"sweep@S{size}", f"sweep@S{size // 2}",
               f"sweep@S{size // 4}"],
           f"sweep buckets {[r['name'] for r in results]}")
+    # B7, the prologue of each of the three buckets (no depth map)
+    results += prologue_rows(frame_calls["sweep_prologue*"],
+                             "sweep_prologue@")
     (a, k) = frame_calls["tile_composite"]
     k = dict(k)
     k.pop("impl", None)
@@ -839,6 +915,7 @@ def phase_mesh_kernels(cfg, dev, mesh_path):
     from multivolumes_tpu_torch.core import camera as cam_lib
     from multivolumes_tpu_torch.engine import MultiRayCaster
     from multivolumes_tpu_torch.ops import lightsweep as light_ops
+    from multivolumes_tpu_torch.ops import sweep_prep
     from multivolumes_tpu_torch.render import frame as frame_lib
     from multivolumes_tpu_torch.render import tilecast as tile_mod
 
@@ -882,11 +959,13 @@ def phase_mesh_kernels(cfg, dev, mesh_path):
     cam = cam_lib.orbit_camera(0.0, cfg.aspect_ratio, device=dev)
     probe = clone_state(engine.state)
     with capture([(light_ops, "light_self_scan"),
+                  (sweep_prep, "sweep_prologue"),
                   (tile_mod, "tile_composite")]) as calls:
         frame_lib.render_frame(probe, cam, engine.config)
     del probe
     torch.cuda.synchronize()
-    results = []
+    # B7 with the depth bound and the tile composite's cube depth
+    results = prologue_rows(calls["sweep_prologue*"], "sweep_prologue@depth-")
     (a, k) = calls["tile_composite"]
     k = dict(k)
     k.pop("impl", None)
@@ -2132,7 +2211,8 @@ def phase_app(frames: int = 4, mesh_path=None):
 TIMING_ROUNDS = 9
 
 # the hand kernels of the frame by the pass that must launch them
-PASS_KERNELS = {"sweep_kernel": "sweep", "tile_composite_kernel": "composite",
+PASS_KERNELS = {"sweep_kernel": "sweep", "sweep_prologue_kernel": "sweep",
+                "tile_composite_kernel": "composite",
                 "mesh_tile_kernel": "composite", "self_scan_kernel": "light",
                 "taa_resolve_kernel": "taa"}
 
@@ -2241,18 +2321,18 @@ def phase_tools(cfg, dev, mesh_path):
 
 # the hand kernels one bench frame launches: profiler kernel name ->
 # launches, and the launch counts, without and with the opaque mesh (B1
-# once per LOD bucket; B3 and B4 are both `self_scan_kernel`)
+# and B7 once per LOD bucket; B3 and B4 are both `self_scan_kernel`)
 BENCH_FRAME = {
-    False: ({"sweep_kernel": 3, "tile_composite_kernel": 1,
-             "mesh_tile_kernel": 0, "self_scan_kernel": 2,
-             "taa_resolve_kernel": 1},
-            {"sweep": 3, "composite": 1, "light_self_scan": 1,
-             "light_advect_mul": 1, "taa": 1}),
-    True: ({"sweep_kernel": 3, "tile_composite_kernel": 1,
-            "mesh_tile_kernel": 1, "self_scan_kernel": 2,
-            "taa_resolve_kernel": 1},
-           {"sweep": 3, "composite_depth": 1, "light_self_scan_sm": 1,
-            "light_advect_mul": 1, "taa": 1}),
+    False: ({"sweep_kernel": 3, "sweep_prologue_kernel": 3,
+             "tile_composite_kernel": 1, "mesh_tile_kernel": 0,
+             "self_scan_kernel": 2, "taa_resolve_kernel": 1},
+            {"sweep": 3, "sweep_prologue": 3, "composite": 1,
+             "light_self_scan": 1, "light_advect_mul": 1, "taa": 1}),
+    True: ({"sweep_kernel": 3, "sweep_prologue_kernel": 3,
+            "tile_composite_kernel": 1, "mesh_tile_kernel": 1,
+            "self_scan_kernel": 2, "taa_resolve_kernel": 1},
+           {"sweep": 3, "sweep_prologue": 3, "composite_depth": 1,
+            "light_self_scan_sm": 1, "light_advect_mul": 1, "taa": 1}),
 }
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "mode"}
 

@@ -42,6 +42,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "mv_sweep_march": [_P] * 15 + [_I] * 6 + [_F, _P],
     "mv_sweep_info": [_I, _I, _I, _I, _I, _P],
+    "mv_sweep_prologue": [_P] * 11 + [_I] * 14 + [_F] * 3 + [_P],
     "mv_tile_composite": [_P] * 9 + [_I] * 12 + [_P],
     "mv_tile_composite_info": [_I, _I, _P],
     "mv_light_self_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _P],

@@ -5,11 +5,13 @@ Counterpart of `multivolumes_tpu/render/sweep.py` (`eye_to_face_frames`,
 three output contracts, `ray_march_view_sweep`, the un-bucketed march of
 every volume at full resolution, and `ray_march_view_sweep_lod_sharded`
 and `ray_march_view_sweep_sharded`, the two split over the volume axis
-of a device mesh). The
-per-(volume, face) march itself is kernel B1 (`ops/sweep.py`); this
-module does the per-frame geometry around it: face frames, ray
-intervals, LOD buckets, the sorted assembly and the Catmull-Smith
-pre-swap of each face for the tile composite. With a scene depth map
+of a device mesh). The per-(volume, face) march itself is kernel B1
+(`ops/sweep.py`), and the prologue of each LOD bucket (its ray
+intervals, depth bound and cube depth) kernel B7 (`ops/sweep_prep.py`,
+whose plain version is `bucket_prologue_plain` here); this module does
+the per-frame geometry around them: face frames, LOD buckets, the sorted
+assembly and the Catmull-Smith pre-swap of each face for the tile
+composite. With a scene depth map
 (the opaque mesh), each ray also ends where the scene occludes it
 (`_occlusion_s_max`, the reference's `GetTMax` in the sweep's ray
 parameter, sampled per bucket at a quarter, half or full bucket
@@ -26,6 +28,7 @@ import torch
 
 from multivolumes_tpu_torch.config import SharedConsts
 from multivolumes_tpu_torch.core import math3d
+from multivolumes_tpu_torch.ops import sweep_prep
 from multivolumes_tpu_torch.ops.sweep import (  # noqa: F401 (the JAX names)
     ABSORPTION, FACE_FLIPS, FACE_VARIANT, MAX_DIST, ZERO_THRESHOLD,
     sweep_march)
@@ -254,28 +257,52 @@ def bucket_mips(cull: CullResult, ids, mip_b: int, max_mip: int):
                        mip_b, max_mip).int()
 
 
-def bucket_march_args(cull: CullResult, eye_faces, ids, size_b: int,
-                      n_eff_v, s_max=None):
-    """Kernel-B1 arguments of one bucket: (eye faces, params, smp_count,
-    run mask), rays beyond each volume's n_eff corner dead; `s_max`
-    (count, 6, S_b, S_b) bounds the rays by the scene depth."""
+def bucket_ray_params(eye_faces, ids, size_b: int, n_eff_v, s_max=None):
+    """Kernel-B1 ray operands of one bucket (count, 6, S_b, S_b), rays
+    beyond each volume's n_eff corner dead; `s_max` (count, 6, S_b, S_b)
+    bounds the rays by the scene depth."""
     count = ids.shape[0]
     ar = torch.arange(size_b, dtype=torch.float32, device=ids.device)
     u = (ar[None] + 0.5) / n_eff_v[:, None] * 2.0 - 1.0     # (count, S_b)
     u6 = u.repeat_interleave(6, dim=0)
-    eye_f_b = eye_faces[ids]
     params = face_ray_params(
-        eye_f_b.reshape(count * 6, 3), u6, -u6,
+        eye_faces[ids].reshape(count * 6, 3), u6, -u6,
         None if s_max is None else s_max.reshape(count * 6, size_b, size_b))
     in_corner = ((ar[None, None, :] < n_eff_v[:, None, None])
                  & (ar[None, :, None] < n_eff_v[:, None, None]))
     shape = (count, 6, size_b, size_b)
-    params = SweepParams(
+    return SweepParams(
         *(x.reshape(shape) for x in (params.s_in, params.s_end,
                                      params.ray_len)),
         params.active.reshape(shape) & in_corner[:, None])
+
+
+def bucket_prologue_plain(per_object: PerObject, eye_local, eye_faces, ids,
+                          size_b: int, n_eff_v, depth_map=None, swap=None,
+                          cube_depth=None, rows=None) -> SweepParams:
+    """Plain version of kernel B7 (`ops/sweep_prep.py:sweep_prologue`):
+    one bucket's ray operands and, with the scene depth map, its depth
+    bound and its cube depth written to `cube_depth[rows, :, :S_b, :S_b]`,
+    unprojected to view distance and swapped by `swap` (count, 6) for the
+    tile composite, else the sampled clip depth."""
+    s_max = None
+    if depth_map is not None:
+        s_max, depth_b = bucket_occlusion(per_object, eye_local,
+                                          _pool2_max(depth_map), ids, size_b,
+                                          n_eff_v)
+        if swap is not None:
+            depth_b = unproject_z(depth_b.float())
+            depth_b = torch.where(swap[:, :, None, None],
+                                  depth_b.transpose(-1, -2), depth_b)
+        cube_depth[rows, :, :size_b, :size_b] = depth_b
+    return bucket_ray_params(eye_faces, ids, size_b, n_eff_v, s_max)
+
+
+def bucket_march_args(cull: CullResult, eye_faces, ids):
+    """Kernel-B1 arguments of one bucket besides its ray operands: (eye
+    faces, smp_count, run mask)."""
     run = cull.face_mask[ids] & cull.visible[ids][:, None]
-    return eye_f_b, params, cull.smp_count[ids], run
+    return eye_faces[ids], cull.smp_count[ids], run
 
 
 def ray_march_view_sweep_lod(
@@ -349,28 +376,21 @@ def ray_march_view_sweep_lod(
     else:
         color = torch.zeros((n, 6, 4, s, s), dtype=volumes_sweep.dtype,
                             device=dev)
-    cube_depth = occl_depth = None
+    cube_depth = None
     if depth_map is not None:
         cube_depth = torch.full((n, 6, s, s), SharedConsts.Z_FAR
                                 if swap is not None else 1.0,
                                 dtype=torch.float32, device=dev)
-        occl_depth = _pool2_max(depth_map)
     for (b0, count, size_b, _mip_b), ids, n_eff_v in zip(
             buckets, bucket_ids, n_effs):
         with timing.span("sweep.bucket"):
             rows = slice(b0, b0 + count) if sorted_output else ids
-            sw = None if swap is None else swap[b0:b0 + count, :, None, None]
-            s_max_b = None
-            if depth_map is not None:
-                s_max_b, depth_b = bucket_occlusion(
-                    per_object, eye_local, occl_depth, ids, size_b, n_eff_v)
-                if sw is not None:
-                    depth_b = unproject_z(depth_b.float())
-                    depth_b = torch.where(sw, depth_b.transpose(-1, -2),
-                                          depth_b)
-                cube_depth[rows, :, :size_b, :size_b] = depth_b
-            eye_f_b, params, smp, run = bucket_march_args(
-                cull, eye_faces, ids, size_b, n_eff_v, s_max=s_max_b)
+            sw = None if swap is None else swap[b0:b0 + count]
+            params = sweep_prep.sweep_prologue(
+                per_object, eye_local, eye_faces, ids, n_eff_v, size_b,
+                depth_map=depth_map, swap=sw, cube_depth=cube_depth,
+                rows=rows, impl=impl)
+            eye_f_b, smp, run = bucket_march_args(cull, eye_faces, ids)
             scatter = sweep_march(
                 volumes_sweep, light_sweep, vol_tex_ids[ids], eye_f_b, params,
                 smp, run, size_b, size_b, n_eff_b=n_eff_v, light_ids=ids,
@@ -382,8 +402,8 @@ def ray_march_view_sweep_lod(
             else:
                 out_b = scatter.to(volumes_sweep.dtype)
             if sw is not None:
-                out_b = torch.where(sw[:, :, None], out_b.transpose(-1, -2),
-                                    out_b)
+                out_b = torch.where(sw[:, :, None, None, None],
+                                    out_b.transpose(-1, -2), out_b)
             color[rows, :, :, :size_b, :size_b] = out_b
     if not sorted_output:
         order = torch.arange(n, device=dev)
