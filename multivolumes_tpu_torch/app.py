@@ -99,7 +99,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "ms (less its steps and syncs) in brackets, and "
                         "its host syncs with their wait: the numbers the "
                         "benchmark reads as <pass>.dispatch_ms, "
-                        "frame.host_syncs and frame.sync_wait_ms")
+                        "frame.host_syncs and frame.sync_wait_ms; then "
+                        "the near-ladder raster's ms and the frame's "
+                        "counters (mesh.raster_samples, mesh.shade_px, "
+                        "taa.reproj_px)")
     p.add_argument("--interactive", action="store_true",
                    help="read hotkey commands from stdin between frames, "
                         "the headless analog of the reference's runtime "
@@ -206,12 +209,16 @@ def parse_volume_args(occurrences, default_file=None):
 
 def host_stats(rec) -> str:
     """A frame's span record -> its host ms per pass (self ms in
-    brackets) and its host syncs with the ms they waited."""
+    brackets), its host syncs with the ms they waited, the near-ladder
+    raster's ms where it ran, and its counters."""
     own = rec.self_ms("pass")
+    near = rec.ms("step").get("mesh.near")
     return ("host ms " + ", ".join(f"{name} {ms:.2f} ({own[name]:.2f})"
                                    for name, ms in rec.ms("pass").items())
             + f" | {rec.count('sync')} host syncs, "
-            f"{sum(rec.ms('sync').values()):.2f} ms")
+            f"{sum(rec.ms('sync').values()):.2f} ms"
+            + ("" if near is None else f" | mesh.near {near:.2f} ms")
+            + "".join(f" | {name} {v}" for name, v in rec.counters.items()))
 
 
 def write_image(path: str, img: torch.Tensor) -> None:

@@ -43,7 +43,11 @@
 //   * every division stays an IEEE division, as in the plain version:
 //     the hit test, the exit-face select and floor(vt), floor(cu) are
 //     discontinuous, and a reciprocal's rounding would move pixels
-//     across them (tools/kernel_variants.py times that variant).
+//     across them (tools/kernel_variants.py times that variant); for the
+//     same reason the exit's coordinates and clip-z are products and sums
+//     rounded one by one in the plain version's order (no fused
+//     multiply-add), so the hit, the exit face and the depth test are the
+//     plain version's.
 // A cache of the exit faces' rows in shared memory per tile (the TPU
 // kernel's face scratch) is not built: the taps of a CTA's pixels are
 // neighbours, and the L1 serves them.
@@ -90,6 +94,21 @@ __device__ __forceinline__ float safe(float x) {
 
 __device__ __forceinline__ float finite(float x) {
   return fabsf(x) < kBig ? x : 0.0f;  // NaN compares false -> 0
+}
+
+// a0 x + a1 y + a2, rounded as the plain version's (a0 x + a1 y) + a2
+__device__ __forceinline__ float lin2_rn(float a0, float x, float a1,
+                                         float y, float a2) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(a0, x), __fmul_rn(a1, y)), a2);
+}
+
+// x v[0] + y v[1] + z v[2] + v[3], rounded as ((x v0 + y v1) + z v2) + v3
+__device__ __forceinline__ float dot3_rn(float x, float y, float z,
+                                         const float* v) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(x, v[0]),
+                                       __fmul_rn(y, v[1])),
+                             __fmul_rn(z, v[2])),
+                   v[3]);
 }
 
 __device__ __forceinline__ void slab(float o, float d, float* t_lo,
@@ -224,10 +243,14 @@ __global__ void __launch_bounds__(kThreads, kMinCtas) tile_composite_kernel(
 
     for (int e = 0; e < m; ++e) {
       const float* vf = rec + e * kRecF;
-      // ray / box exit in the volume's local frame
-      const float dlx = vf[0] * xg + vf[3] * yg + vf[6];
-      const float dly = vf[1] * xg + vf[4] * yg + vf[7];
-      const float dlz = vf[2] * xg + vf[5] * yg + vf[8];
+      // ray / box exit in the volume's local frame, uncontracted in the
+      // plain version's operation order up to the exit clip-z: the hit
+      // test, the exit-face select and the depth test are discontinuous,
+      // and a fused product moves pixels across them (one volume's colour
+      // gained or lost there)
+      const float dlx = lin2_rn(vf[0], xg, vf[3], yg, vf[6]);
+      const float dly = lin2_rn(vf[1], xg, vf[4], yg, vf[7]);
+      const float dlz = lin2_rn(vf[2], xg, vf[5], yg, vf[8]);
       float ix, ox, iy, oy, iz, oz;
       slab(vf[9], dlx, &ix, &ox);
       slab(vf[10], dly, &iy, &oy);
@@ -235,17 +258,17 @@ __global__ void __launch_bounds__(kThreads, kMinCtas) tile_composite_kernel(
       const float t_near = fmaxf(fmaxf(ix, iy), iz);
       const float t_far = fminf(fminf(ox, oy), oz);
       const bool hit = t_far > fmaxf(t_near, 0.0f);
-      const float qx = vf[9] + dlx * t_far;
-      const float qy = vf[10] + dly * t_far;
-      const float qz = vf[11] + dlz * t_far;
+      const float qx = __fadd_rn(vf[9], __fmul_rn(dlx, t_far));
+      const float qy = __fadd_rn(vf[10], __fmul_rn(dly, t_far));
+      const float qz = __fadd_rn(vf[11], __fmul_rn(dlz, t_far));
       const float ax = fabsf(qx), ay = fabsf(qy), az = fabsf(qz);
       const bool is_x = (ax >= ay) && (ax >= az);
       const bool is_y = !is_x && (ay >= az);
       const int face = is_x ? (qx >= 0.0f ? 0 : 1)
                             : (is_y ? (qy >= 0.0f ? 2 : 3)
                                     : (qz >= 0.0f ? 4 : 5));
-      const float hz = qx * vf[12] + qy * vf[13] + qz * vf[14] + vf[15];
-      const float hw = qx * vf[16] + qy * vf[17] + qz * vf[18] + vf[19];
+      const float hz = dot3_rn(qx, qy, qz, vf + 12);
+      const float hw = dot3_rn(qx, qy, qz, vf + 16);
       const float exit_z = hz / fmaxf(hw, 1e-20f);
       const bool valid = hit && (hw > 0.0f) && (exit_z <= scene_z) &&
                          (exit_z > 0.0f);

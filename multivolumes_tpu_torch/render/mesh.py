@@ -25,11 +25,15 @@ raster kernel written by hand is later work (ROADMAP B6). Windows of the
 screen are cut and pasted back by index arithmetic on device tensors, so
 the pass reads no device value on the host. Under a device mesh with a
 rows axis the raster and the shade run in row bands
-(`render_mesh_sharded`).
+(`render_mesh_sharded`). The frame's record counts, from the host, the
+coverage samples the raster launches (`raster_samples`, counter
+`mesh.raster_samples`) and the pixels the shade covers (`mesh.shade_px`);
+a raster on the near ladder is the step span `mesh.near`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import NamedTuple
 
@@ -244,8 +248,78 @@ def window_index(c, win: int, extent: int, dev):
     return start + torch.arange(win, device=dev)
 
 
+_BIG_TIERS = ((2048, 12), (128, 48), (8, 256))  # rasterize's default ladder
+
+
+def _emit_plan(n_tris: int, k: int, big_tiers, capacity, dense_top: int,
+               tail, small_tiers):
+    """The coverage emits of `rasterize`, in its order -> (ordered, plan):
+    `ordered` whether the triangles are ranked by screen edge, `plan` a
+    list of (lo, hi, kk), each the ranks [lo, hi) of that order on a
+    kk x kk grid, or (None, None, k) for every triangle in index order."""
+    T = n_tris
+    ordered = bool(big_tiers or dense_top or tail or small_tiers
+                   or (capacity is not None and capacity < T))
+    if not ordered:
+        return False, [(None, None, k)]
+    n_emit = capacity if (capacity is not None and capacity < T) else T
+    big_max = min(max((c for c, _ in big_tiers or ()), default=0), n_emit)
+    if small_tiers and n_emit > 8:
+        starts = [max(min(st, n_emit), big_max + 1) for st, _ in small_tiers]
+        plan = [(big_max, starts[0], k)]
+        for i, (_, kk) in enumerate(small_tiers):
+            end = starts[i + 1] if i + 1 < len(starts) else n_emit
+            if end > starts[i]:
+                plan.append((starts[i], end, kk))
+    elif tail and n_emit > 8:
+        frac, tail_k = tail
+        mid = max(int(n_emit * (1.0 - frac)), big_max + 1)
+        plan = [(big_max, mid, k), (mid, n_emit, tail_k)]
+    elif n_emit < T or big_max:
+        plan = [(big_max, n_emit, k)]
+    else:
+        plan = [(None, None, k)]
+    at = min(dense_top, T)  # ranks [0, dense_top) go to the dense pass
+    for count, kk in sorted(big_tiers or ()):
+        count = min(count, T)
+        if count <= at:
+            continue
+        plan.append((at, count, kk))
+        at = count
+    return True, plan
+
+
+@functools.lru_cache(maxsize=64)  # a frame's levers repeat every frame
+def raster_samples(n_tris: int, width: int, height: int, k: int = 4,
+                   big_tiers=_BIG_TIERS, want_ids: bool = True,
+                   cull: int = 0, capacity: int | None = None,
+                   dense_top: int = 0, tail: tuple | None = None,
+                   small_tiers: tuple | None = None,
+                   dense_window: int | None = None,
+                   band: tuple | None = None) -> int:
+    """The coverage samples `rasterize` launches with these levers on a
+    mesh of `n_tris` triangles, from the host: each emit's triangles x
+    kk^2 (culled triangles emit too), plus the dense pass's triangles x
+    the pixels it z-tests (its window, the band's rows or the screen).
+    The ladders are tuples (hashable), as the config holds them."""
+    del cull
+    ordered, plan = _emit_plan(n_tris, k, big_tiers, capacity, dense_top,
+                               tail, small_tiers)
+    n = sum((n_tris if lo is None
+             else max(0, min(hi, n_tris) - min(lo, n_tris))) * kk * kk
+            for lo, hi, kk in plan)
+    if dense_top and ordered and (not want_ids or n_tris < (1 << _TBITS)):
+        if (band is None and dense_window is not None
+                and 0 < dense_window <= min(width, height)):
+            px = dense_window * dense_window
+        else:
+            px = (height // band[1] if band is not None else height) * width
+        n += min(dense_top, n_tris) * px
+    return n
+
+
 def rasterize(verts_clip, indices, width: int, height: int, k: int = 4,
-              big_tiers=((2048, 12), (128, 48), (8, 256)),
+              big_tiers=_BIG_TIERS,
               want_ids: bool = True, cull: int = 0,
               capacity: int | None = None, dense_top: int = 0,
               tail: tuple | None = None, small_tiers: tuple | None = None,
@@ -338,40 +412,15 @@ def rasterize(verts_clip, indices, width: int, height: int, k: int = 4,
 
     pack_ids = want_ids and T < (1 << _TBITS)
 
+    ordered, plan = _emit_plan(T, k, big_tiers, capacity, dense_top, tail,
+                               small_tiers)
     order = None
-    if (big_tiers or dense_top or tail or small_tiers
-            or (capacity is not None and capacity < T)):
+    if ordered:
         edge = torch.where(tri_ok, torch.maximum(xmax - xmin, ymax - ymin),
                            -1.0)
         order = torch.argsort(-edge, stable=True)
-
-    n_emit = capacity if (capacity is not None and capacity < T) else T
-    big_max = min(max((c for c, _ in big_tiers), default=0), n_emit) \
-        if order is not None else 0
-    if small_tiers and order is not None and n_emit > 8:
-        starts = [max(min(st, n_emit), big_max + 1) for st, _ in small_tiers]
-        parts = [emit(order[big_max:starts[0]], k)]
-        for i, (_, kk) in enumerate(small_tiers):
-            end = starts[i + 1] if i + 1 < len(starts) else n_emit
-            if end > starts[i]:
-                parts.append(emit(order[starts[i]:end], kk))
-    elif tail and order is not None and n_emit > 8:
-        frac, tail_k = tail
-        mid = max(int(n_emit * (1.0 - frac)), big_max + 1)
-        parts = [emit(order[big_max:mid], k),
-                 emit(order[mid:n_emit], tail_k)]
-    elif order is not None and (n_emit < T or big_max):
-        parts = [emit(order[big_max:n_emit], k)]
-    else:
-        parts = [emit(None, k)]
-    at = min(dense_top, T)  # ranks [0, dense_top) go to the dense pass
-    if big_tiers and order is not None:
-        for count, kk in sorted(big_tiers):
-            count = min(count, T)
-            if count <= at:
-                continue
-            parts.append(emit(order[at:count], kk))
-            at = count
+    parts = [emit(None if lo is None else order[lo:hi], kk)
+             for lo, hi, kk in plan]
 
     flat_pix = torch.cat([p[0] for p in parts])
     flat_zq = torch.cat([p[1] for p in parts])
@@ -744,6 +793,12 @@ def _shade_window(config: RenderConfig) -> int:
         config.width, config.height) else 0
 
 
+def _shade_px(config: RenderConfig) -> int:
+    """The pixels the deferred shade covers: its window, or the screen."""
+    win = _shade_window(config)
+    return win * win if win else config.width * config.height
+
+
 def _window(op: _FrameOperands, config: RenderConfig, dev):
     """(ys, xs) pixel indices of the shade window around the mesh."""
     win = config.mesh_shade_window
@@ -778,11 +833,17 @@ def render_mesh(state, camera: Camera, config: RenderConfig) -> MeshOutput:
     dev = state.mesh_verts.device
     with timing.span("mesh.operands"):
         op = _frame_operands(state, camera, config)
-    with timing.span("mesh.raster"):
+    dense_window = config.mesh_shade_window if _window_fits(config) else None
+    with timing.span("mesh.raster"), (
+            contextlib.nullcontext() if far_preset(config)
+            else timing.span("mesh.near")):
         depth, tri_id = rasterize(
             op.clip_jit, state.mesh_indices, width, height,
-            dense_window=(config.mesh_shade_window if _window_fits(config)
-                          else None), **op.raster_kw)
+            dense_window=dense_window, **op.raster_kw)
+    timing.add("mesh.raster_samples", raster_samples(
+        state.mesh_indices.shape[0], width, height,
+        dense_window=dense_window, **op.raster_kw))
+    timing.add("mesh.shade_px", _shade_px(config))
     with timing.span("mesh.shade"):
         shade = _shader(state, camera, config, op)
         if _shade_window(config):
@@ -850,6 +911,11 @@ def render_mesh_sharded(states: dict, cameras: dict, config: RenderConfig,
                        **frame_ops[dev].raster_kw)
              for r, dev in enumerate(band_devs)]
     depth = coll.all_gather([b[0] for b in bands], 0, mesh, "mesh_depth")
+    timing.add("mesh.raster_samples", sum(
+        raster_samples(n_tris, width, height, band=(r, rows),
+                       **frame_ops[dev].raster_kw)
+        for r, dev in enumerate(band_devs)))
+    timing.add("mesh.shade_px", _shade_px(config))
 
     shaders = {}
 

@@ -13,7 +13,8 @@ reprojected by an ordinary bilinear gather (the JAX package's quad-row
 table, `_bilinear_rows16`, is a TPU gather workaround): over the whole
 screen, or, given the mesh's screen centre and a window, only in that
 window (velocity is zero outside it), the window cut and pasted back by
-index arithmetic on the device.
+index arithmetic on the device. The frame's record counts the pixels
+reprojected (`utils.timing.add`, counter `taa.reproj_px`).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 
 from multivolumes_tpu_torch.ops import taa as taa_ops
 from multivolumes_tpu_torch.render.mesh import window_index
+from multivolumes_tpu_torch.utils import timing
 from multivolumes_tpu_torch.ops.taa import (  # noqa: F401  (the module API)
     OFFSETS, itm, rgb_to_ycocg, tm, ycocg_to_rgb)
 
@@ -121,8 +123,10 @@ def temporal_aa(current, history, velocity, tonemap_out: bool = False,
     elif reproj_center is not None and 0 < reproj_window < min(h, w):
         hist, blur = reproject_window(history, velocity, reproj_center,
                                       reproj_window)
+        timing.add("taa.reproj_px", reproj_window * reproj_window)
     else:
         hist, blur = reproject(history, velocity)
+        timing.add("taa.reproj_px", h * w)
     if rows_mesh:
         out = taa_ops.taa_resolve_sharded(device_mesh, cur, hist, blur,
                                           impl=impl)

@@ -9,7 +9,9 @@ dispatched without a sync in between; on the CPU they are the host clock.
 each of the frame's marks (`render_frame(timer=)`), `step` spans
 (`span(name)`) inside the passes that hold most of the host time, and a
 `sync` span around each place the frame makes the host wait for the
-device (`host_read(site, fn)`). It keeps the last `KEEP_FRAMES` frames
+device (`host_read(site, fn)`), and counters (`add(name, value)`): host
+numbers summed into the frame's record, such as the samples a pass
+launches. It keeps the last `KEEP_FRAMES` frames
 in memory and writes nothing out. While a `torch.profiler` records, each
 span of a frame also opens a `record_function` range `span:<name>`, so a
 device trace places its kernels and idle gaps in the program's spans on
@@ -40,12 +42,13 @@ class FrameRecord:
     `spans[0]` is the frame span. A span is a list [name, kind, parent,
     start_ns, end_ns]: `parent` the index of the enclosing span (-1 for
     the frame span), the times `time.perf_counter_ns` (`end_ns` 0 while
-    open)."""
+    open). `counters` is {name: summed value} of the frame's `add`
+    calls."""
 
-    __slots__ = ("index", "spans")
+    __slots__ = ("index", "spans", "counters")
 
     def __init__(self, index: int):
-        self.index, self.spans = index, []
+        self.index, self.spans, self.counters = index, [], {}
 
     def ms(self, kind: str) -> dict:
         """{name: summed ms} of the spans of `kind`, in first-open order
@@ -153,6 +156,12 @@ class SpanRecorder:
         finally:
             self._close(i, _now())
 
+    def add(self, name: str, value) -> None:
+        """Sum `value` into the open frame's counter `name`."""
+        rec = self.current
+        if rec is not None:
+            rec.counters[name] = rec.counters.get(name, 0) + value
+
     def _open(self, name: str, kind: str, now: int = 0) -> int:
         spans, stack = self.current.spans, self._stack
         i = len(spans)
@@ -181,6 +190,13 @@ SPANS = SpanRecorder()
 def span(name: str) -> _Step:
     """`with span(name):` records a step span of the open frame."""
     return _Step(SPANS, name)
+
+
+def add(name: str, value) -> None:
+    """Sum the host number `value` into the open frame's counter `name`
+    (`FrameRecord.counters`); outside a frame nothing is recorded. It
+    reads nothing from the device."""
+    SPANS.add(name, value)
 
 
 def host_read(site: str, fn):
