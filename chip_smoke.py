@@ -5,6 +5,7 @@
     python3 chip_smoke.py --profile-reference   # phase 10 alone, profiled
     python3 chip_smoke.py --profile-sharded-settings   # phase 11 alone,
                                                        # every setting profiled
+    python3 chip_smoke.py --mesh-shade   # phases 1, 2 and B8's rows alone
 
 Phases (any failure exits non-zero, and no result line is printed):
   1. the card: `nvidia-smi` name and power limit, torch and CUDA versions;
@@ -32,7 +33,11 @@ Phases (any failure exits non-zero, and no result line is printed):
      buckets; B7, each bucket's prologue, on the same three buckets of
      the frame without and with the mesh (the depth bound and the tile
      composite's cube depth), every output within 1e-6 relative; B3 and
-     B4 also at the full refresh's 64 volumes), with
+     B4 also at the full refresh's 64 volumes; B8, the mesh's deferred
+     shade, on the shade of a frame with the test torus at 1280x800 (its
+     384 window, the far preset) and at 2560x1440 (the full screen, the
+     near preset), colour, velocity and validity within 1e-4 + 1e-4
+     relative, with the kernels one call launches), with
      the parity tolerance of the kernel's card test; times of both from
      CUDA events after warm-up, each kernel's bound (below), for B1, B2,
      B2', the B2 band, B4, B5, B5' and B6 the device time of the kernels
@@ -202,12 +207,15 @@ KERNELS = {
     "taa_band": (_CSRC + "taa.cu", _PALLAS + "taa_kernel.py:247"),
     "raster_bin_eval": (_CSRC + "raster_bin.cu",
                         "tools/raster_bin_microbench.py:172"),
+    # B8 replaces no Pallas kernel: the JAX frame's deferred shade in XLA
+    "mesh_shade": (_CSRC + "mesh_shade.cu",
+                   "multivolumes_tpu/render/mesh.py:889"),
 }
 # the kernels of the frame without and with the opaque mesh
 NO_MESH = ("sweep", "sweep_prologue", "composite", "light_self_scan",
            "light_advect_mul", "taa")
 WITH_MESH = ("sweep", "sweep_prologue", "composite_depth",
-             "light_self_scan_sm", "light_advect_mul", "taa")
+             "light_self_scan_sm", "light_advect_mul", "taa", "mesh_shade")
 # summary row name -> (launch-count key, the path whose counts it reports)
 ROW_KERNEL = {"sweep@unbucketed": ("sweep", "unbucketed"),
               "sweep_prologue@depth": ("sweep_prologue", "mesh"),
@@ -221,7 +229,9 @@ ROW_KERNEL = {"sweep@unbucketed": ("sweep", "unbucketed"),
               "composite@band-unsorted": ("composite_band",
                                           "sharded_settings"),
               "taa_band": ("taa_band", "sharded"),
-              "raster_bin_eval": ("raster_bin_eval", "raster_bin")}
+              "raster_bin_eval": ("raster_bin_eval", "raster_bin"),
+              "mesh_shade@1280x800-window": ("mesh_shade", "mesh_800p"),
+              "mesh_shade@2560x1440-full": ("mesh_shade", "mesh_1440p")}
 # the kernels of the un-bucketed frame with the warp composite, and of the
 # frame in full reference semantics (the gather passes have none but B5)
 UNBUCKETED = ("sweep", "light_self_scan", "light_advect_mul", "taa")
@@ -231,7 +241,7 @@ REFERENCE = ("taa",)
 SHARDED = ("sweep", "composite_band", "light_self_scan", "light_advect_mul",
            "taa_band")
 SHARDED_MESH = ("sweep", "composite_depth_band", "light_self_scan_sm",
-                "light_advect_mul", "taa_band")
+                "light_advect_mul", "taa_band", "mesh_shade")
 # the sharded step's other settings: name -> (config change, with the test
 # mesh, the kernels it launches on a mesh with a rows axis; the reference
 # light runs none of B3 / B4, the warp and gather composites none of B2)
@@ -699,6 +709,14 @@ def main() -> int:
                                profile_all=True)
         log(smi_line)
         return 0
+    if sys.argv[1:] == ["--mesh-shade"]:
+        rows, launches = phase_mesh_shade(dev, torus_mesh(MESH_TRIS))
+        for r in rows:
+            key, path = row_kernel(r["name"])
+            r["launches"] = launches[path][key]
+        log(smi_line)
+        print(json.dumps({"kernels": rows}), flush=True)
+        return 0
     if sys.argv[1:] == ["--profile-reference"]:
         # the reference phase alone, with a frame of the full reference
         # semantics under the profiler: its device busy time (the profile
@@ -714,6 +732,9 @@ def main() -> int:
     results += mesh_results
     launches["mesh"] = phase_demo(mesh_engine, cfg, dev, WITH_MESH,
                                   frames=4, closeup=True)
+    shade_results, shade_launches = phase_mesh_shade(dev, mesh_path)
+    results += shade_results
+    launches.update(shade_launches)
     torch.cuda.empty_cache()
     t0 = time.time()
     (sharded_results, launches["sharded"],
@@ -1037,6 +1058,110 @@ def phase_mesh_kernels(cfg, dev, mesh_path):
         reps=(10, 2)))
     del calls, low_calls, y_calls
     return engine, results
+
+
+def bound_mesh_shade(args, kwargs):
+    """B8: bytes, the per-triangle inputs read once (indices, clip
+    positions and the vertices' position and normal), the plane rows
+    written once and those of the distinct winning triangles read once,
+    the ids of the rectangle, the distinct shadow-map texels under the
+    shaded pixels' 2 x 2 taps (at most the map), the five fields and
+    validity written; operations, a plane row's 105 f32 operations a
+    triangle and a shaded pixel's 380 (planes, five transforms, PCF, SH
+    and the BRDF, transcendental functions as one)."""
+    import torch
+
+    from multivolumes_tpu_torch.render import mesh as mesh_lib
+
+    state, _cam, _cfg, op, tri, rows, cols = args
+    n_tris, n_verts = state.mesh_indices.shape[0], state.mesh_verts.shape[0]
+    fields, valid = mesh_lib.deferred_shade(*args, **dict(kwargs,
+                                                          impl="kernel"))
+    shaded = int(valid.sum())
+    ids = tri[tri >= 0].unique().numel() if shaded else 0
+    taps = min(4 * shaded, state.mesh_shadow_map.numel())
+    nbytes = (n_tris * (24 + 96) + n_verts * (16 + 24) + ids * 96
+              + rows.size * cols.size * 8 + taps * 4
+              + valid.numel() * 21)
+    del fields
+    torch.cuda.synchronize()
+    return nbytes, 105.0 * n_tris + 380.0 * shaded
+
+
+def phase_mesh_shade(dev, mesh_path):
+    """B8 against its plain version on the shade of a frame with the test
+    torus (the demo's placement, 4 volumes: the shade reads none) at
+    1280x800 from the orbit's first pose (the far preset, the 384 window
+    pasted into the screen) and at 2560x1440 from the same pose (the near
+    preset, the full screen): the `mesh_shade@<size>` rows, the kernels
+    one call launches (profiler), and -> (rows, {path: launches}), the
+    launch counts of the captured frame at each size under "mesh_800p"
+    and "mesh_1440p"."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from multivolumes_tpu_torch import ops
+    from multivolumes_tpu_torch.config import RenderConfig
+    from multivolumes_tpu_torch.core import camera as cam_lib
+    from multivolumes_tpu_torch.engine import MultiRayCaster
+    from multivolumes_tpu_torch.render import frame as frame_lib
+    from multivolumes_tpu_torch.render import mesh as mesh_lib
+
+    rows, launches = [], {}
+    for (w, h), name, path in (((1280, 800), "1280x800-window", "mesh_800p"),
+                               ((2560, 1440), "2560x1440-full",
+                                "mesh_1440p")):
+        cfg = RenderConfig(**dict(DEMO, width=w, height=h, num_volumes=4,
+                                  num_volume_srcs=2))
+        engine = MultiRayCaster(cfg, device=dev)
+        engine.set_mesh(mesh_path)
+        preset = engine.select_raster_preset((0.0, 6.0, 60.0))
+        win = mesh_lib._shade_window(engine.config)
+        log(f"[mesh_shade] {name}: preset {preset}, shade window {win}")
+        check((preset, bool(win)) == (("far", True) if w == 1280
+                                      else ("near", False)),
+              f"{name}: preset {preset}, window {win}")
+        cam = cam_lib.orbit_camera(0.0, cfg.aspect_ratio, device=dev)
+        probe = clone_state(engine.state)
+        ops.reset_launches()
+        with capture([(mesh_lib, "deferred_shade")]) as calls:
+            frame_lib.render_frame(probe, cam, engine.config)
+        torch.cuda.synchronize()
+        launches[path] = dict(ops.LAUNCHES)
+        log(f"[mesh_shade] {name}: the frame launched mesh_shade "
+            f"{launches[path]['mesh_shade']} times")
+        check(0 < launches[path]["mesh_shade"] <= 3,
+              f"{name}: {launches[path]['mesh_shade']} mesh_shade launches "
+              f"in the frame")
+        a, k = calls["deferred_shade"]
+        k = {key: v for key, v in k.items() if key != "impl"}
+        row = compare_kernel(f"mesh_shade@{name}", mesh_lib.deferred_shade,
+                             a, k,
+                             allclose_tol(1e-4, 1e-4, f"mesh_shade@{name}"),
+                             bound_mesh_shade, reps=(20, 2),
+                             device_kernel=("mesh_planes_kernel",
+                                            "mesh_shade_kernel"))
+        fields, valid = mesh_lib.deferred_shade(*a, **k, impl="kernel")
+        want, _ = mesh_lib.deferred_shade(*a, **k, impl="plain")
+        torch.cuda.synchronize()
+        n_diff = int(((fields - want) != 0).sum())
+        log(f"[mesh_shade] {name}: {int(valid.sum())} of {valid.numel()} "
+            f"pixels shaded; {n_diff} of {fields.numel()} elements differ "
+            f"from plain at all")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            mesh_lib.deferred_shade(*a, **k, impl="kernel")
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        log(f"[mesh_shade] {name}: one call launches {len(kernels)} "
+            f"kernels: {kernels}")
+        check(0 < len(kernels) <= 3, f"{name}: {len(kernels)} kernels a call")
+        rows.append(row)
+        del engine, probe, calls, a, fields, valid, want
+        torch.cuda.empty_cache()
+    return rows, launches
 
 
 def scan_numbers(light_ops, name, c, l, has_sm, dev, advect=False):
@@ -2214,7 +2339,11 @@ TIMING_ROUNDS = 9
 PASS_KERNELS = {"sweep_kernel": "sweep", "sweep_prologue_kernel": "sweep",
                 "tile_composite_kernel": "composite",
                 "mesh_tile_kernel": "composite", "self_scan_kernel": "light",
-                "taa_resolve_kernel": "taa"}
+                "taa_resolve_kernel": "taa", "mesh_planes_kernel": "mesh",
+                "mesh_shade_kernel": "mesh"}
+# the kernels of PASS_KERNELS that only a frame with the mesh launches
+MESH_ONLY_KERNELS = ("mesh_tile_kernel", "mesh_planes_kernel",
+                     "mesh_shade_kernel")
 
 
 def phase_tools(cfg, dev, mesh_path):
@@ -2293,7 +2422,7 @@ def phase_tools(cfg, dev, mesh_path):
         trace_ops.print_report(report)
         for kernel, want in PASS_KERNELS.items():
             got = trace_ops.passes_of(report, kernel)
-            check(got == {want} or (kernel == "mesh_tile_kernel"
+            check(got == {want} or (kernel in MESH_ONLY_KERNELS
                                     and path is None and not got),
                   f"trace_ops, {what}: {kernel} in the passes {got}, "
                   f"not in {want!r} alone")
@@ -2321,18 +2450,22 @@ def phase_tools(cfg, dev, mesh_path):
 
 # the hand kernels one bench frame launches: profiler kernel name ->
 # launches, and the launch counts, without and with the opaque mesh (B1
-# and B7 once per LOD bucket; B3 and B4 are both `self_scan_kernel`)
+# and B7 once per LOD bucket; B3 and B4 are both `self_scan_kernel`; B8
+# once with the mesh, as its planes and its shade)
 BENCH_FRAME = {
     False: ({"sweep_kernel": 3, "sweep_prologue_kernel": 3,
              "tile_composite_kernel": 1, "mesh_tile_kernel": 0,
-             "self_scan_kernel": 2, "taa_resolve_kernel": 1},
+             "self_scan_kernel": 2, "taa_resolve_kernel": 1,
+             "mesh_planes_kernel": 0, "mesh_shade_kernel": 0},
             {"sweep": 3, "sweep_prologue": 3, "composite": 1,
              "light_self_scan": 1, "light_advect_mul": 1, "taa": 1}),
     True: ({"sweep_kernel": 3, "sweep_prologue_kernel": 3,
             "tile_composite_kernel": 1, "mesh_tile_kernel": 1,
-            "self_scan_kernel": 2, "taa_resolve_kernel": 1},
+            "self_scan_kernel": 2, "taa_resolve_kernel": 1,
+            "mesh_planes_kernel": 1, "mesh_shade_kernel": 1},
            {"sweep": 3, "sweep_prologue": 3, "composite_depth": 1,
-            "light_self_scan_sm": 1, "light_advect_mul": 1, "taa": 1}),
+            "light_self_scan_sm": 1, "light_advect_mul": 1, "taa": 1,
+            "mesh_shade": 1}),
 }
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "mode"}
 
@@ -2353,9 +2486,11 @@ def phase_bench(dev, mesh_path, smi_line):
     from multivolumes_tpu_torch.ops import lightsweep as light_ops
     from multivolumes_tpu_torch.ops import sweep as sweep_ops
     from multivolumes_tpu_torch.ops import taa as taa_ops
+    from multivolumes_tpu_torch.render import mesh as mesh_lib
 
     cfg, frames = bench.bench_config(True)
-    plains = ((sweep_ops, "sweep_march_plain"),
+    plains = ((mesh_lib, "shade_plain"),
+              (sweep_ops, "sweep_march_plain"),
               (composite_ops, "tile_composite_plain"),
               (light_ops, "light_self_scan_plain"),
               (light_ops, "light_advect_mul_plain"),

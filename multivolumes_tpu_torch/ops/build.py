@@ -54,6 +54,7 @@ SIGNATURES = {
     "mv_taa_resolve": [_P, _P, _P, _P, _P, _I, _I, _P],
     "mv_taa_resolve_band": [_P, _P, _P, _P, _I, _I, _P],
     "mv_raster_bin_eval": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "mv_mesh_shade": [_P] * 19 + [_I] * 18 + [_P],
 }
 
 

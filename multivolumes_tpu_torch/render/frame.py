@@ -138,7 +138,7 @@ def _render_frame_local(state: SceneState, camera: Camera,
     mesh_out = depth_map = None
     if has_mesh:
         mark("mesh")
-        mesh_out = mesh_lib.render_mesh(state, camera, config)
+        mesh_out = mesh_lib.render_mesh(state, camera, config, impl)
         depth_map = mesh_out.depth
 
     # --- light ------------------------------------------------------------
@@ -461,7 +461,8 @@ def _render_frame_sharded(sharded, camera: Camera, config: RenderConfig,
     depth_map = None
     if has_mesh:
         mark("mesh")
-        mesh_out = mesh_lib.render_mesh_sharded(rep, cams, config, mesh)
+        mesh_out = mesh_lib.render_mesh_sharded(rep, cams, config, mesh,
+                                                impl)
         depth_map = {dev: m.depth for dev, m in mesh_out.items()}
 
     mark("light")

@@ -13,7 +13,9 @@ z-buffer plus a deferred shade:
    planes give perspective-correct position and normal; then the
    Blinn-Phong + Schlick-Fresnel + SH-ambient + Karis-env-BRDF shading of
    `PSBasePass.hlsl:94-153`, the velocity output and the Halton jitter of
-   `VSBasePass.hlsl:50`.
+   `VSBasePass.hlsl:50`. On the card it is one call of B8
+   (`ops/mesh_shade.py`, `csrc/mesh_shade.cu`); `_shader` is its plain
+   version.
 
 The tier ladders, the capacity, the small-triangle tail and the dense
 analytic top decide which coverage samples exist, so they decide the
@@ -40,10 +42,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from multivolumes_tpu_torch import ops
 from multivolumes_tpu_torch.config import RenderConfig, SharedConsts
 from multivolumes_tpu_torch.core import math3d, sh as sh_lib
 from multivolumes_tpu_torch.core.camera import Camera
 from multivolumes_tpu_torch.core.halton import halton_jitter
+from multivolumes_tpu_torch.ops import mesh_shade as shade_ops
+from multivolumes_tpu_torch.ops.mesh_shade import Span
 from multivolumes_tpu_torch.utils import timing
 
 _ZQ = float(1 << 24)  # depth quantization of the z-buffer
@@ -799,38 +804,78 @@ def _shade_px(config: RenderConfig) -> int:
     return win * win if win else config.width * config.height
 
 
-def _window(op: _FrameOperands, config: RenderConfig, dev):
-    """(ys, xs) pixel indices of the shade window around the mesh."""
-    win = config.mesh_shade_window
-    return (window_index(op.center[1], win, config.height, dev),
-            window_index(op.center[0], win, config.width, dev))
-
-
-def _paste(fields, ys, xs, height: int, width: int, dev):
-    """Window fields ((r, g, b), (vx, vy), valid) -> full-screen fields,
-    zero (False) outside the window."""
+def _paste(fields, valid, ys, xs, height: int, width: int):
+    """Window fields (5, h, w) and valid (h, w) at rows ys and columns xs
+    -> full-screen (5, H, W) and (H, W), zero (False) outside."""
     yi, xi = ys[:, None], xs[None, :]
-
-    def paste(field, dtype=torch.float32):
-        out = torch.zeros((height, width), dtype=dtype, device=dev)
-        out[yi, xi] = field
-        return out
-
-    col, vel, valid = fields
-    return (tuple(paste(c) for c in col), tuple(paste(c) for c in vel),
-            paste(valid, torch.bool))
+    out = fields.new_zeros((fields.shape[0], height, width))
+    out[:, yi, xi] = fields
+    mask = valid.new_zeros((height, width))
+    mask[yi, xi] = valid
+    return out, mask
 
 
-def render_mesh(state, camera: Camera, config: RenderConfig) -> MeshOutput:
+def _span_index(span: Span, config: RenderConfig, extent: int, dev):
+    """The pixel indices (size,) of one axis of a shaded rectangle."""
+    if span.centre is None:
+        return span.base + torch.arange(span.size, device=dev)
+    return window_index(span.centre, config.mesh_shade_window, extent,
+                        dev)[span.base:span.base + span.size]
+
+
+def shade_plain(state, camera: Camera, config: RenderConfig,
+                op: _FrameOperands, tri_id, rows: Span, cols: Span,
+                tri_row0: int = 0, paste: bool = False):
+    """The plain version of B8 (`deferred_shade`, its arguments):
+    `_shader`'s closure on the rectangle's pixels, pasted into the full
+    screen with `paste` -> (fields (5, h, w), valid (h, w))."""
+    dev = tri_id.device
+    ys = _span_index(rows, config, config.height, dev)
+    xs = _span_index(cols, config, config.width, dev)
+    col, vel, valid = _shader(state, camera, config, op)(
+        tri_id[(ys - tri_row0)[:, None], xs[None, :]], xs, ys)
+    fields = torch.stack(col + vel)
+    if paste:
+        return _paste(fields, valid, ys, xs, config.height, config.width)
+    return fields, valid
+
+
+def deferred_shade(state, camera: Camera, config: RenderConfig,
+                   op: _FrameOperands, tri_id, rows: Span, cols: Span,
+                   tri_row0: int = 0, paste: bool = False,
+                   impl: str | None = None):
+    """The deferred shade of one rectangle of the screen (a `Span` an
+    axis, a centred one the shade window's) from the winning ids tri_id
+    (th, W) of screen rows [tri_row0, tri_row0 + th) -> (fields (5, h, w)
+    (r, g, b, vx, vy), valid (h, w)), or with `paste` the full screen's,
+    0 and False outside the rectangle. B8 (`ops/mesh_shade.py`) on CUDA
+    tensors, `shade_plain` on the CPU; `impl` forces a side (`ops`'s
+    dispatch rule)."""
+    if not ops.use_kernel(impl, tri_id):
+        return shade_plain(state, camera, config, op, tri_id, rows, cols,
+                           tri_row0=tri_row0, paste=paste)
+    return shade_ops.mesh_shade(
+        tri_id, rows, cols, op.clip_jit, state.mesh_verts,
+        state.mesh_indices, state.mesh_world, op.s_vp, op.wvp,
+        state.mesh_prev_wvp, camera.eye, state.light_pos, state.light_color,
+        state.ambient, state.sh_coeffs, state.mesh_shadow_map,
+        height=config.height, width=config.width,
+        window=config.mesh_shade_window,
+        has_light_probe=config.has_light_probe, tri_row0=tri_row0,
+        paste=paste)
+
+
+def render_mesh(state, camera: Camera, config: RenderConfig,
+                impl: str | None = None) -> MeshOutput:
     """Base pass + deferred shade (the shadow map is cached in state).
 
     Under the far preset (the host pick guarantees the projected bbox <=
     raster_far_bound), the dense raster pass and the deferred shade run
     in a `mesh_shade_window` square around the mesh when the window
-    provably contains it; the near preset shades the full screen. Under
-    a device mesh: `render_mesh_sharded`."""
+    provably contains it; the near preset shades the full screen. The
+    shade is B8 (`ops/mesh_shade.py`, `impl` forces its side). Under a
+    device mesh: `render_mesh_sharded`."""
     width, height = config.width, config.height
-    dev = state.mesh_verts.device
     with timing.span("mesh.operands"):
         op = _frame_operands(state, camera, config)
     dense_window = config.mesh_shade_window if _window_fits(config) else None
@@ -845,23 +890,22 @@ def render_mesh(state, camera: Camera, config: RenderConfig) -> MeshOutput:
         dense_window=dense_window, **op.raster_kw))
     timing.add("mesh.shade_px", _shade_px(config))
     with timing.span("mesh.shade"):
-        shade = _shader(state, camera, config, op)
-        if _shade_window(config):
-            ys, xs = _window(op, config, dev)
-            col, vel, valid = _paste(
-                shade(tri_id[ys[:, None], xs[None, :]], xs, ys), ys, xs,
-                height, width, dev)
+        win = _shade_window(config)
+        if win:
+            rows, cols = Span(0, win, op.center[1]), Span(0, win, op.center[0])
         else:
-            col, vel, valid = shade(
-                tri_id, torch.arange(width, device=dev),
-                torch.arange(height, device=dev))
-    return MeshOutput(color=col, valid=valid, velocity=vel, depth=depth,
+            rows, cols = Span(0, height), Span(0, width)
+        fields, valid = deferred_shade(state, camera, config, op, tri_id,
+                                       rows, cols, paste=bool(win),
+                                       impl=impl)
+    f = fields.unbind(0)
+    return MeshOutput(color=f[:3], valid=valid, velocity=f[3:], depth=depth,
                       shadow=state.mesh_shadow_map, shadow_vp=op.s_vp,
                       new_prev_wvp=op.wvp, screen_center=op.center)
 
 
 def render_mesh_sharded(states: dict, cameras: dict, config: RenderConfig,
-                        mesh) -> dict:
+                        mesh, impl: str | None = None) -> dict:
     """The mesh pass under a device mesh `mesh` (a
     `parallel.collectives.DeviceMesh`; counterpart of the JAX
     `render_mesh(..., device_mesh=...)`, `multivolumes_tpu/render/
@@ -879,17 +923,19 @@ def render_mesh_sharded(states: dict, cameras: dict, config: RenderConfig,
       rows: rows device r shades rows [r win / rows, (r + 1) win / rows)
       of the window from the all-gathered triangle ids (JAX
       `mesh.py:840-865`); when it does not split, the root shades the
-      window;
+      window straight into the screen;
     * under the near preset (the full screen): each band shades its own
       rows from its own ids. The JAX package lets GSPMD cut this shade;
       it is per-pixel work, so any cut gives the same values.
-    The shaded pieces are pasted on `mesh.root`, where the screen passes
-    run, so only the root's MeshOutput carries colour, velocity and
-    validity (None elsewhere); every device's carries the depth map, the
-    cached shadow map, the shadow view-proj, the new previous-frame
-    world-view-proj and the mesh's screen centre, computed there from
-    its replicated state (the root's centre anchors the windowed TAA
-    reprojection, so nothing is read on the host).
+    Each piece is one `deferred_shade` (B8 on the card, `impl` forces its
+    side). The band pieces are gathered (and a window's pasted) on
+    `mesh.root`, where the screen passes run, so only the root's
+    MeshOutput carries colour, velocity and validity (None elsewhere);
+    every device's carries the depth map, the cached shadow map, the
+    shadow view-proj, the new previous-frame world-view-proj and the
+    mesh's screen centre, computed there from its replicated state (the
+    root's centre anchors the windowed TAA reprojection, so nothing is
+    read on the host).
 
     Otherwise (no rows axis, or the JAX package's other two conditions)
     the whole pass runs on each physical device, as the other replicated
@@ -901,7 +947,7 @@ def render_mesh_sharded(states: dict, cameras: dict, config: RenderConfig,
     n_tris = states[root].mesh_indices.shape[0]
     if not ("rows" in mesh.axis_names and rows > 1 and height % rows == 0
             and n_tris < (1 << _TBITS)):
-        return {dev: render_mesh(states[dev], cameras[dev], config)
+        return {dev: render_mesh(states[dev], cameras[dev], config, impl)
                 for dev in mesh.physical}
     frame_ops = {dev: _frame_operands(states[dev], cameras[dev], config)
                  for dev in mesh.physical}
@@ -917,13 +963,17 @@ def render_mesh_sharded(states: dict, cameras: dict, config: RenderConfig,
         for r, dev in enumerate(band_devs)))
     timing.add("mesh.shade_px", _shade_px(config))
 
-    shaders = {}
+    def shade(dev, tri_w, rows_d, cols_d, tri_row0=0, paste=False):
+        return deferred_shade(states[dev], cameras[dev], config,
+                              frame_ops[dev], tri_w, rows_d, cols_d,
+                              tri_row0=tri_row0, paste=paste, impl=impl)
 
-    def shade(dev, tri_w, xs, ys):
-        if dev not in shaders:
-            shaders[dev] = _shader(states[dev], cameras[dev], config,
-                                   frame_ops[dev])
-        return shaders[dev](tri_w, xs, ys)
+    def onto_root(pieces):
+        """The shaded pieces, in row order, gathered onto the root."""
+        return (coll.all_gather([p[0] for p in pieces], 1, mesh,
+                                "mesh_shade", devices=(root,))[root],
+                coll.all_gather([p[1] for p in pieces], 0, mesh,
+                                "mesh_valid", devices=(root,))[root])
 
     win = _shade_window(config)
     out_h = height // rows
@@ -931,32 +981,28 @@ def render_mesh_sharded(states: dict, cameras: dict, config: RenderConfig,
         tri = coll.all_gather([b[1] for b in bands], 0, mesh, "mesh_tri_id",
                               devices=tuple(dict.fromkeys(band_devs)))
         wb = win // rows
-        pieces = []
-        for r, dev in enumerate(band_devs):
-            ys, xs = _window(frame_ops[dev], config, dev)
-            ys = ys[r * wb:(r + 1) * wb]
-            pieces.append(shade(dev, tri[dev][ys[:, None], xs[None, :]], xs,
-                                ys))
+        fields, valid = onto_root([
+            shade(dev, tri[dev], Span(r * wb, wb, frame_ops[dev].center[1]),
+                  Span(0, win, frame_ops[dev].center[0]))
+            for r, dev in enumerate(band_devs)])
+        cx, cy = frame_ops[root].center
+        fields, valid = _paste(
+            fields, valid, _span_index(Span(0, win, cy), config, height, root),
+            _span_index(Span(0, win, cx), config, width, root), height, width)
     elif win:
+        # the root shades the whole window straight into the screen
         tri = coll.all_gather([b[1] for b in bands], 0, mesh, "mesh_tri_id",
                               devices=(root,))[root]
-        ys, xs = _window(frame_ops[root], config, root)
-        pieces = [shade(root, tri[ys[:, None], xs[None, :]], xs, ys)]
+        cx, cy = frame_ops[root].center
+        fields, valid = shade(root, tri, Span(0, win, cy), Span(0, win, cx),
+                              paste=True)
     else:
         # the full-screen shade: per raster band, from the band's own ids
-        pieces = [shade(dev, tri_b, torch.arange(width, device=dev),
-                        r * out_h + torch.arange(out_h, device=dev))
-                  for r, (dev, (_d, tri_b)) in enumerate(zip(band_devs,
-                                                             bands))]
-    # the pieces, in row order, onto the root
-    fields = coll.all_gather([torch.stack(p[0] + p[1]) for p in pieces], 1,
-                             mesh, "mesh_shade", devices=(root,))[root]
-    valid = coll.all_gather([p[2] for p in pieces], 0, mesh, "mesh_valid",
-                            devices=(root,))[root]
+        fields, valid = onto_root([
+            shade(dev, tri_b, Span(r * out_h, out_h), Span(0, width),
+                  tri_row0=r * out_h)
+            for r, (dev, (_d, tri_b)) in enumerate(zip(band_devs, bands))])
     shaded = (tuple(fields[:3]), tuple(fields[3:]), valid)
-    if win:
-        ys, xs = _window(frame_ops[root], config, root)
-        shaded = _paste(shaded, ys, xs, height, width, root)
     return {dev: MeshOutput(
         color=shaded[0] if dev == root else None,
         valid=shaded[2] if dev == root else None,

@@ -224,7 +224,11 @@ def test_sharded_render_mesh_matches_unsharded(jax_mesh, port_state,
     if layout == "vol2":
         assert names == []
     else:
-        assert names[0] == "mesh_depth" and "mesh_shade" in names
+        assert names[0] == "mesh_depth"
+        # a window that does not split into the rows is shaded on the
+        # root straight into the screen: no piece to gather
+        assert ("mesh_shade" in names) == (preset != "far"
+                                           or layout != "rows5")
         assert ("mesh_tri_id" in names) == (preset == "far")
 
 
