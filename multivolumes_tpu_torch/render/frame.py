@@ -13,24 +13,16 @@ composite's taps (B2's depth variant), its cached shadow map shades the
 light cohort (B3's shadow-map variant), it is the opaque background of
 the volumes, and its velocity reprojects the TAA history.
 
-The config picks the passes as the JAX frame does: `light_mode=
-"reference"` or `point_light` refresh one volume's map a frame with the
-gather light march (`lightmarch.py`); `march_mode="reference"` marches
-the cube maps per ray (`raymarch.ray_march_view`) and composites with the
-gather composite and its per-pixel march; under the sweep,
-`composite_mode` "auto"/"tile" takes B2, "warp" the tile warps
-(`warp.composite_oit_warp`) and "gather" the CubeCast gather
-(`composite.composite_oit`); `lod_bucket_caps=None` or
-`adaptive_raymarch=False` marches every volume at full resolution in
-one B1 launch (`sweep.ray_march_view_sweep`).
+The config picks the light, march and composite passes as the JAX frame
+does (`frame_passes`).
 
 PyTorch runs eagerly, so there is no jit boundary. The main path makes
 the host wait for the device only inside `utils.timing.host_read`, which
-counts and times each wait: the composite prep's check of the swap
-flags, the inverses' singularity checks and the small uploads from host
-memory that PyTorch follows with a stream sync; the reference marches
-read their done masks every few steps and the warp composite its branch
-flags once a volume. The light stacks of `state` are updated in place.
+counts and times each wait: the inverses' singularity checks and the
+small uploads from host memory that PyTorch follows with a stream sync;
+the reference marches read their done masks every few steps and the warp
+composite its branch flags once a volume. The light stacks of `state` are
+updated in place.
 
 With a device mesh (`render_frame(..., mesh=mesh)`, the state a
 `parallel.sharding.ShardedState`) the same passes run as the sharded
@@ -71,11 +63,17 @@ class FrameOutput(NamedTuple):
     state: SceneState
 
 
-def check_supported(config: RenderConfig, sharded: bool = False) -> None:
-    """Raise for settings the JAX package does not have either. The
-    sharded frame step runs every setting the unsharded frame runs, with
-    or without the opaque mesh, so `sharded` changes nothing."""
-    del sharded
+def frame_passes(config: RenderConfig):
+    """The passes `config` picks -> (light, march, composite), as the JAX
+    frame does, in the frame and the sharded step alike. light: "sweep"
+    (the cohort refresh, B3 / B4), or "reference" for `light_mode=
+    "reference"` or `point_light` (the gather light march of one volume a
+    frame). march: "lod" (the LOD buckets), "unbucketed" for
+    `lod_bucket_caps=None` or `adaptive_raymarch=False` (one B1 launch at
+    full resolution), or "reference" (per ray). composite: "tile" (B2) for
+    "auto" and "tile", "warp" (the tile warps), or "gather" (the CubeCast
+    gather), always after the reference march. Raises for settings the
+    JAX package does not have either."""
     bad = []
     if config.march_mode not in ("sweep", "reference"):
         bad.append(f"march_mode={config.march_mode!r}")
@@ -85,6 +83,19 @@ def check_supported(config: RenderConfig, sharded: bool = False) -> None:
         bad.append(f"composite_mode={config.composite_mode!r}")
     if bad:
         raise ValueError("unknown setting: " + ", ".join(bad))
+    light = "reference" if config.point_light else config.light_mode
+    march = ("reference" if config.march_mode == "reference"
+             else "lod" if config.lod_bucket_caps is not None
+             and config.adaptive_raymarch else "unbucketed")
+    composite = ("gather" if march == "reference"
+                 else "tile" if config.composite_mode == "auto"
+                 else config.composite_mode)
+    return light, march, composite
+
+
+def check_supported(config: RenderConfig) -> None:
+    """Raise for settings the JAX package does not have either."""
+    frame_passes(config)
 
 
 def render_frame(state: SceneState, camera: Camera, config: RenderConfig,
@@ -120,6 +131,7 @@ def _render_frame_local(state: SceneState, camera: Camera,
                         config: RenderConfig, show_mesh: bool, use_taa: bool,
                         planar: bool, impl, mark) -> FrameOutput:
     """The frame on one device (`render_frame` without a device mesh)."""
+    light, march, composite = frame_passes(config)
     width, height = config.width, config.height
     has_mesh = bool(show_mesh and state.mesh_indices.shape[0] > 1)
 
@@ -144,7 +156,7 @@ def _render_frame_local(state: SceneState, camera: Camera,
     # --- light ------------------------------------------------------------
     mark("light")
     light_sout = state.light_sout
-    if config.light_mode == "sweep" and not config.point_light:
+    if light == "sweep":
         # refresh one cohort round-robin (config.light_refresh)
         ids = _cohort(config, state.frame_idx, dev)
         # an axis the engine did not bake is read from the device
@@ -187,19 +199,14 @@ def _render_frame_local(state: SceneState, camera: Camera,
     n = config.num_volumes
     s = config.cube_map_size
     order = swap = lod_order = lod_buckets = None
-    use_raycast = config.march_mode != "sweep"
-    # "auto"/"tile": the screen-tile kernel; "warp": the tile warps;
-    # "gather": the per-pixel CubeCast (the reference march's composite)
-    use_warp = (not use_raycast
-                and config.composite_mode in ("auto", "warp", "tile"))
-    use_tile = use_warp and config.composite_mode in ("auto", "tile")
-    if use_raycast:
+    use_tile = composite == "tile"
+    if march == "reference":
         cube_maps = raymarch.ray_march_view(
             state.volumes, state.vol_tex_ids, state.light_maps.movedim(1, -1),
             per_object, cull, eye, depth_map, s, config.max_ray_samples,
             adaptive=config.adaptive_raymarch)
         cull_for_composite = cull
-    elif config.lod_bucket_caps is not None and config.adaptive_raymarch:
+    elif march == "lod":
         # the sweep marches every visible face; the composite reads the
         # effective mips the buckets gave
         lod_cull = cull._replace(use_cube_map=cull.visible)
@@ -210,7 +217,7 @@ def _render_frame_local(state: SceneState, camera: Camera,
             else None,
             bucket_caps=config.lod_bucket_caps, vol_zmax=state.vol_zmax,
             impl=impl, depth_map=depth_map, sorted_output=use_tile,
-            pack=not use_warp)
+            pack=composite == "gather")
         cube_maps = swept.cube_maps
         cull_for_composite = cull._replace(mip_level=swept.mips,
                                            use_cube_map=cull.visible)
@@ -231,12 +238,12 @@ def _render_frame_local(state: SceneState, camera: Camera,
             per_object, cull_for_composite, eye, depth_map, s,
             num_planes=config.sweep_planes, vol_zmax=state.vol_zmax,
             impl=impl)
-    if (config.packed_composite and not use_warp and not use_raycast
-            and cube_maps.color.shape[2] == 4):
-        # the gather composite reads f16 pairs (the LOD sweep packs its
-        # own maps for it whatever packed_composite says, as in JAX)
-        cube_maps = cube_maps._replace(
-            color=composite_lib.pack_cube_f16(cube_maps.color))
+        if config.packed_composite and composite == "gather":
+            # the gather composite reads f16 pairs (the LOD sweep packs
+            # its own maps for it whatever packed_composite says, as in
+            # JAX)
+            cube_maps = cube_maps._replace(
+                color=composite_lib.pack_cube_f16(cube_maps.color))
 
     # --- background: sky ------------------------------------------------
     mark("sky")
@@ -248,10 +255,10 @@ def _render_frame_local(state: SceneState, camera: Camera,
     mark("composite")
     cw, ch = _composite_size(config, has_mesh)
     volumes = _composite(
-        config, use_tile, use_warp, use_raycast, has_mesh, cube_maps,
-        per_object, cull_for_composite, eye, screen_to_world, depth_map, cw,
-        ch, order, swap, lod_order, lod_buckets, state.volumes,
-        state.vol_tex_ids, state.light_maps, impl)
+        config, composite, march, has_mesh, cube_maps, per_object,
+        cull_for_composite, eye, screen_to_world, depth_map, cw, ch, order,
+        swap, lod_order, lod_buckets, state.volumes, state.vol_tex_ids,
+        state.light_maps, impl)
 
     mark("tail")
     sc = _blend_background(volumes, (bg_r, bg_g, bg_b), width, height,
@@ -281,20 +288,20 @@ def _cohort(config: RenderConfig, frame_idx: int, device=None):
     return (frame_idx * c + torch.arange(c, device=device)) % n
 
 
-def _composite(config: RenderConfig, use_tile: bool, use_warp: bool,
-               use_raycast: bool, has_mesh: bool, cube_maps, per_object, cull,
-               eye, screen_to_world, depth_map, cw: int, ch: int, order, swap,
+def _composite(config: RenderConfig, composite: str, march: str,
+               has_mesh: bool, cube_maps, per_object, cull, eye,
+               screen_to_world, depth_map, cw: int, ch: int, order, swap,
                lod_order, lod_buckets, volumes, vol_tex_ids, light_maps, impl):
     """The OIT composite of one device at (cw, ch) -> (r, g, b, a): the
-    screen-tile kernel (`use_tile`), the tile warps (`use_warp`), else the
-    per-pixel CubeCast, which marches through `light_maps` (N, 4, L, L, L)
-    where the reference march made the maps (`use_raycast`)."""
-    if use_tile:
+    screen-tile kernel, the tile warps or the per-pixel CubeCast
+    (`composite`), which marches through `light_maps` (N, 4, L, L, L)
+    after the reference march."""
+    if composite == "tile":
         return tilecast.composite_oit_tile(
             cube_maps, per_object, cull, eye, screen_to_world, cw, ch,
             num_layers=config.oit_layers, order=order, swap_sorted=swap,
             depth_map=depth_map, impl=impl)
-    if use_warp:
+    if composite == "warp":
         return warp_lib.composite_oit_warp(
             cube_maps, per_object, cull, eye, screen_to_world, depth_map, cw,
             ch, num_layers=config.oit_layers, tile=_warp_tile(config),
@@ -304,8 +311,8 @@ def _composite(config: RenderConfig, use_tile: bool, use_warp: bool,
         None if light_maps is None else light_maps.movedim(1, -1),
         per_object, cull, eye, screen_to_world, depth_map, cw, ch,
         config.max_ray_samples, num_layers=config.oit_layers,
-        adaptive=config.adaptive_raymarch, use_raycast=use_raycast,
-        has_depth=has_mesh)
+        adaptive=config.adaptive_raymarch,
+        use_raycast=march == "reference", has_depth=has_mesh)
 
 
 def _warp_tile(config: RenderConfig) -> int:
@@ -420,6 +427,7 @@ def _render_frame_sharded(sharded, camera: Camera, config: RenderConfig,
     """
     from multivolumes_tpu_torch.parallel import collectives as coll
 
+    light, march, composite = frame_passes(config)
     width, height = config.width, config.height
     nd, rows = mesh.n_volumes_axis, mesh.rows
     has_rows = "rows" in mesh.axis_names
@@ -467,7 +475,7 @@ def _render_frame_sharded(sharded, camera: Camera, config: RenderConfig,
 
     mark("light")
     shard_light = sharded.shard_light
-    if config.light_mode == "sweep" and not config.point_light:
+    if light == "sweep":
         _sweep_light_sharded(config, mesh, rep, hosted, by_d, tex_ids,
                              per_object, mesh_out, shard_light, impl)
     else:
@@ -476,10 +484,7 @@ def _render_frame_sharded(sharded, camera: Camera, config: RenderConfig,
 
     mark("sweep")
     n, s = config.num_volumes, config.cube_map_size
-    use_raycast = config.march_mode != "sweep"
-    use_warp = (not use_raycast
-                and config.composite_mode in ("auto", "warp", "tile"))
-    use_tile = use_warp and config.composite_mode in ("auto", "tile")
+    use_tile = composite == "tile"
     reps = lambda name: {dev: getattr(st, name)              # noqa: E731
                          for dev, st in rep.items()}
     # the shards' light stacks: their own under shard_light, else their
@@ -487,10 +492,10 @@ def _render_frame_sharded(sharded, camera: Camera, config: RenderConfig,
     light_sweep = ([b.light_sweep for b in by_d] if shard_light
                    else reps("light_sweep"))
     order = swap = lod_order = lod_buckets = None
-    if use_raycast:
+    if march == "reference":
         # the reference march per volume shard, on its rows of the light
         # maps (channel-last) and of the global cull
-        def march(dev, d, rows):
+        def march_shard(dev, d, rows):
             maps = (by_d[d].light_maps if shard_light
                     else rep[dev].light_maps[rows])
             return raymarch.ray_march_view(
@@ -499,10 +504,10 @@ def _render_frame_sharded(sharded, camera: Camera, config: RenderConfig,
                 None if depth_map is None else depth_map[dev], s,
                 config.max_ray_samples, adaptive=config.adaptive_raymarch)
 
-        cube_maps = sweep_lib.march_volume_shards(mesh, n, march,
+        cube_maps = sweep_lib.march_volume_shards(mesh, n, march_shard,
                                                   depth_map is not None)
         cull_c = cull
-    elif config.lod_bucket_caps is not None and config.adaptive_raymarch:
+    elif march == "lod":
         lod_cull = {dev: c._replace(use_cube_map=c.visible)
                     for dev, c in cull.items()}
         swept = sweep_lib.ray_march_view_sweep_lod_sharded(
@@ -512,7 +517,7 @@ def _render_frame_sharded(sharded, camera: Camera, config: RenderConfig,
              for dev in mesh.physical} if use_tile else None,
             bucket_caps=config.lod_bucket_caps, vol_zmax=reps("vol_zmax"),
             impl=impl, light_sharded=shard_light, depth_map=depth_map,
-            sorted_output=use_tile, pack=not use_warp)
+            sorted_output=use_tile, pack=composite == "gather")
         cube_maps = {dev: sw.cube_maps for dev, sw in swept.items()}
         cull_c = {dev: c._replace(mip_level=swept[dev].mips,
                                   use_cube_map=c.visible)
@@ -538,11 +543,11 @@ def _render_frame_sharded(sharded, camera: Camera, config: RenderConfig,
             light_sweep, per_object, cull_c, eye, depth_map, s,
             num_planes=config.sweep_planes, vol_zmax=reps("vol_zmax"),
             impl=impl, light_sharded=shard_light,
-            pack=config.packed_composite and not use_warp)
+            pack=config.packed_composite and composite == "gather")
 
     cw, ch = _composite_size(config, has_mesh)
     light_maps = None
-    if not use_warp and use_raycast:
+    if march == "reference":
         # the gather composite marches its per-pixel layers through the
         # whole light stack: gathered where the composite runs
         light_maps = (coll.all_gather(
@@ -565,11 +570,11 @@ def _render_frame_sharded(sharded, camera: Camera, config: RenderConfig,
         else:
             at = lambda x: None if x is None else x[dev]     # noqa: E731
             volumes = _composite(
-                config, use_tile, use_warp, use_raycast, has_mesh,
-                cube_maps[dev], per_object[dev], cull_c[dev], eye[dev],
-                screen_to_world[dev], at(depth_map), cw, ch, at(order),
-                at(swap), at(lod_order), lod_buckets, rep[dev].volumes,
-                tex_ids[dev], at(light_maps), impl)
+                config, composite, march, has_mesh, cube_maps[dev],
+                per_object[dev], cull_c[dev], eye[dev], screen_to_world[dev],
+                at(depth_map), cw, ch, at(order), at(swap), at(lod_order),
+                lod_buckets, rep[dev].volumes, tex_ids[dev], at(light_maps),
+                impl)
         if has_rows:
             history = coll.all_gather(
                 [sharded.local(r, 0).taa_history for r in range(rows)], 1,

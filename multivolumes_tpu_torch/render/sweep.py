@@ -250,11 +250,7 @@ def bucket_mips(cull: CullResult, ids, mip_b: int, max_mip: int):
     floored by the bucket's level."""
     actual = torch.clamp(cull.mip_level[ids], 0, max_mip)
     scheme_off = (~cull.use_cube_map[ids]).int()
-    # the host int made a device tensor: an upload that waits
-    floor = timing.host_read("sweep.bucket_mip", lambda: torch.tensor(
-        mip_b, device=ids.device))
-    return torch.clamp(torch.maximum(actual + scheme_off, floor),
-                       mip_b, max_mip).int()
+    return torch.clamp(actual + scheme_off, mip_b, max_mip).int()
 
 
 def bucket_ray_params(eye_faces, ids, size_b: int, n_eff_v, s_max=None):
@@ -360,9 +356,8 @@ def ray_march_view_sweep_lod(
 
         swap = None
         if swap_basis is not None:
-            # one shared function with the tile prep
-            # (warp.catmull_swap_flags), over every sorted row at once: the
-            # prep recomputes exactly this
+            # the frame's one pick of the flags, over every sorted row at
+            # once: the tile prep takes them as given
             n_eff_sorted = torch.cat(n_effs)
             po_sorted = per_object.take(order)
             swap = catmull_swap_flags(

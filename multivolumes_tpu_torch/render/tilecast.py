@@ -2,7 +2,8 @@
 
 Counterpart of `multivolumes_tpu/render/tilecast.py` (`tile_dims`,
 `_tile_prep`, `composite_oit_tile`, `composite_oit_tile_sharded`): the
-per-volume homographies, the Catmull-Smith orientation per face, the per-tile volume lists and the
+per-volume homographies packed by each face's Catmull-Smith orientation
+(the LOD sweep's flags as given), the per-tile volume lists and the
 padded scene depth, handed to `ops/composite.py`. With a scene depth map
 (the opaque mesh) the cube depth planes ride along as `depth_sel`, and
 the composite weights its taps by depth (kernel B2's depth variant).
@@ -49,11 +50,10 @@ def _tile_prep(cube_maps: CubeMaps, per_object: PerObject, cull: CullResult,
 
     `order` (N,): the cube-map rows are in this sorted volume order (the
     LOD sweep's output); every per-volume tensor is permuted to match.
-    `swap_sorted` (N, 6): the faces arrive pre-swapped by these flags. It
-    is only meaningful in sorted space, so it requires `order`, and it
-    must equal the flags this prep derives from its own inputs (one
-    shared function, `warp.catmull_swap_flags`): a mismatch would warp
-    transposed images, so it raises."""
+    `swap_sorted` (N, 6) bool: the LOD sweep's flags, by which its faces
+    arrive pre-swapped; the face rows are packed by them as given. It
+    requires `order` (the flags are in sorted space). Without it the prep
+    picks the flags from its face rows and swaps the maps itself."""
     if swap_sorted is not None and order is None:
         raise ValueError("swap_sorted holds sorted-space flags: pass the "
                          "sweep's order with it")
@@ -75,40 +75,27 @@ def _tile_prep(cube_maps: CubeMaps, per_object: PerObject, cull: CullResult,
     n_eff = torch.clamp(s >> torch.clamp(cull.mip_level, 0, 31),
                         min=1).float()
 
-    swap_nf = warp_lib.catmull_swap_flags(
-        a_mat, per_object.world_i, per_object.world_view_proj, eye_local,
-        n_eff)
-    if swap_sorted is not None:
-        if swap_sorted.shape != swap_nf.shape or not timing.host_read(
-                "composite.swap_check", lambda: torch.equal(
-                    swap_sorted.to(torch.bool), swap_nf)):
-            raise ValueError("the sweep's Catmull-Smith swap flags differ "
-                             "from the composite's: faces would be warped "
-                             "in the wrong orientation")
-        color_sel = color
-    else:
+    p_u, p_v, den = warp_lib.face_rows(b_mat, eye_local, n_eff)
+    # the sweep's flags come with its faces and cube depth (in view
+    # distance) already swapped by them
+    swap_nf, color_sel = swap_sorted, color
+    depth_sel = None if depth_map is None else cube_maps.depth
+    if swap_nf is None:
+        swap_nf = warp_lib.pick_swap_flags(p_u, p_v, den,
+                                           per_object.world_view_proj)
         # contiguous for kernel B2: a `where` over a transposed view may
         # keep the view's strides
         color_sel = torch.where(swap_nf[:, :, None, None, None],
                                 color.transpose(-1, -2), color).contiguous()
-    depth_sel = None
-    if depth_map is not None and cube_maps.depth is not None:
-        if swap_sorted is not None:   # the sweep delivered it swapped
-            depth_sel = cube_maps.depth
-        else:
-            dep = unproject_z(cube_maps.depth.float())
+        if depth_sel is not None:
+            dep = unproject_z(depth_sel.float())
             depth_sel = torch.where(swap_nf[:, :, None, None],
                                     dep.transpose(-1, -2), dep).contiguous()
 
-    faces = []
-    for f in range(6):
-        nu, nv, den = warp_lib.face_homography(b_mat, eye_local, f)
-        p_u = n_eff[:, None] * nu - 0.5 * den
-        p_v = n_eff[:, None] * nv - 0.5 * den
-        swap = swap_nf[:, f, None]
-        faces.append(torch.cat([torch.where(swap, p_v, p_u),
-                                torch.where(swap, p_u, p_v), den], dim=1))
-    face_flt = torch.stack(faces, dim=1)                  # (N, 6, 9)
+    swap = swap_nf[..., None]
+    face_flt = torch.cat([torch.where(swap, p_v, p_u),
+                          torch.where(swap, p_u, p_v), den],
+                         dim=-1)                          # (N, 6, 9)
 
     wvp = per_object.world_view_proj
     vol_flt = torch.cat([b_mat.reshape(n, 9), eye_local, wvp[:, :, 2],

@@ -4,9 +4,9 @@ Counterpart of `multivolumes_tpu/render/warp.py`. For one volume and one
 exit face the map from screen NDC q = [x, y, 1] to face coordinates is a
 homography, u = (nu.q)/(den.q), v = (nv.q)/(den.q). The tile composite
 (kernel B2) evaluates it as a Catmull-Smith two-pass resample whose pass
-order per face is chosen by `catmull_swap_flags`; that one function
-serves both the sweep's bucket assembly (which emits faces pre-swapped)
-and the tile prep, so the two can never disagree.
+order per face is chosen by `catmull_swap_flags`: the LOD sweep picks
+the flags once and emits its faces pre-swapped by them, and the tile
+prep takes them as given, packing the rows of `face_rows`.
 
 `composite_oit_warp` (`composite_mode="warp"`) resamples each volume's
 faces onto a screen tile around it with two tent-matrix products a face
@@ -74,27 +74,38 @@ def local_basis(a_mat, world_i):
     return torch.einsum("ij,njk->nik", a_mat, world_i[:, :3, :3])
 
 
-def catmull_swap_flags(a_mat, world_i, world_view_proj, eye_local, n_eff):
-    """(N, 6) bool per-(volume, face) Catmull-Smith resample-axis choice:
-    True = the face image is consumed transposed. Picks whichever face
-    axis varies more with screen y at the volume's projected centre."""
-    b_mat = local_basis(a_mat, world_i)
-    c0 = world_view_proj[:, 3, :]
-    c0w = torch.where(c0[:, 3].abs() > 1e-3, c0[:, 3], 1e-3)
-    xc = torch.clamp(c0[:, 0] / c0w, -1.0, 1.0)
-    yc = torch.clamp(c0[:, 1] / c0w, -1.0, 1.0)
-    swaps = []
+def face_rows(b_mat, eye_local, n_eff):
+    """Each volume's six face homographies in texels -> (p_u, p_v, den),
+    each (N, 6, 3): (p_u.q)/(den.q) = n_eff * u - 0.5, likewise v. b_mat
+    (N, 3, 3) from `local_basis`, eye_local (N, 3), n_eff (N,) float."""
+    rows = []
     for f in range(6):
         nu, nv, den = face_homography(b_mat, eye_local, f)
-        p_u = n_eff[:, None] * nu - 0.5 * den
-        p_v = n_eff[:, None] * nv - 0.5 * den
-        dqc = den[:, 0] * xc + den[:, 1] * yc + den[:, 2]
-        vqc = p_v[:, 0] * xc + p_v[:, 1] * yc + p_v[:, 2]
-        uqc = p_u[:, 0] * xc + p_u[:, 1] * yc + p_u[:, 2]
-        dv_dy = p_v[:, 1] * dqc - den[:, 1] * vqc
-        du_dy = p_u[:, 1] * dqc - den[:, 1] * uqc
-        swaps.append(dv_dy.abs() < du_dy.abs())
-    return torch.stack(swaps, dim=1)
+        rows.append((n_eff[:, None] * nu - 0.5 * den,
+                     n_eff[:, None] * nv - 0.5 * den, den))
+    return tuple(torch.stack(r, dim=1) for r in zip(*rows))
+
+
+def pick_swap_flags(p_u, p_v, den, world_view_proj):
+    """(N, 6) bool Catmull-Smith resample-axis choice from the rows of
+    `face_rows`: True = the face image is consumed transposed, its u axis
+    varying more with screen y at the volume's projected centre."""
+    c0 = world_view_proj[:, 3, :]
+    c0w = torch.where(c0[:, 3].abs() > 1e-3, c0[:, 3], 1e-3)
+    xc = torch.clamp(c0[:, 0] / c0w, -1.0, 1.0)[:, None]
+    yc = torch.clamp(c0[:, 1] / c0w, -1.0, 1.0)[:, None]
+    dqc = den[..., 0] * xc + den[..., 1] * yc + den[..., 2]
+    vqc = p_v[..., 0] * xc + p_v[..., 1] * yc + p_v[..., 2]
+    uqc = p_u[..., 0] * xc + p_u[..., 1] * yc + p_u[..., 2]
+    dv_dy = p_v[..., 1] * dqc - den[..., 1] * vqc
+    du_dy = p_u[..., 1] * dqc - den[..., 1] * uqc
+    return dv_dy.abs() < du_dy.abs()
+
+
+def catmull_swap_flags(a_mat, world_i, world_view_proj, eye_local, n_eff):
+    """(N, 6) bool Catmull-Smith flags: `pick_swap_flags` of the rows."""
+    rows = face_rows(local_basis(a_mat, world_i), eye_local, n_eff)
+    return pick_swap_flags(*rows, world_view_proj)
 
 
 def _safe(x, eps=_EPS):

@@ -1,7 +1,8 @@
 """Parity of the port's screen-tile composite with the JAX package: the
 tile prep (homographies, per-tile lists) and the plain version of kernel
 B2 against the Pallas kernel in interpret mode on the same operands;
-plus the port's guards on the sweep -> composite contract.
+plus the sweep -> composite contract: the prep takes the sweep's
+Catmull-Smith flags as given.
 Tolerance: mean < 3e-3, p99.5 < 3e-2 (tests/test_warp.py:172-173)."""
 
 import jax.numpy as jnp
@@ -34,11 +35,16 @@ def prep_case():
                  cfg.height)
     port_kw = dict(num_layers=8, order=torch.from_numpy(np.asarray(order)),
                    swap_sorted=torch.from_numpy(np.asarray(swap)))
-    return cfg, jprep, port_args, port_kw
+
+    def jax_prep(swap_sorted):
+        return jtile._tile_prep(maps, po, cull_c, cam.eye, s2w, None,
+                                cfg.width, cfg.height, num_layers=8,
+                                order=order, swap_sorted=swap_sorted)
+    return cfg, jprep, port_args, port_kw, jax_prep
 
 
 def test_tile_prep_matches_jax(prep_case):
-    cfg, jprep, port_args, port_kw = prep_case
+    cfg, jprep, port_args, port_kw, _jax_prep = prep_case
     (jcolor, _jdep, jscene, jtl, jcnt, jvol, jface, js, jth, jtw, jtx,
      jk) = jprep
     (color, depth_sel, scene, tlist, counts, vol_flt, face_flt, s, th, tw,
@@ -69,7 +75,7 @@ def _pallas_and_plain(cfg, jprep):
 
 
 def test_b2_plain_matches_pallas_interpret(prep_case):
-    cfg, jprep, _a, _k = prep_case
+    cfg, jprep, _a, _k, _j = prep_case
     got, want = _pallas_and_plain(cfg, jprep)
     h, w = cfg.height, cfg.width
     assert float(n(want)[3, :h, :w].max()) > 0.2  # volumes on screen
@@ -81,19 +87,38 @@ def test_b2_plain_matches_pallas_interpret(prep_case):
 
 
 def test_composite_requires_order_with_swap_flags(prep_case):
-    _cfg, _jprep, port_args, port_kw = prep_case
+    _cfg, _jprep, port_args, port_kw, _jax_prep = prep_case
     with pytest.raises(ValueError, match="order"):
         ptile._tile_prep(*port_args, num_layers=8,
                          swap_sorted=port_kw["swap_sorted"])
 
 
-def test_composite_rejects_mismatched_swap_flags(prep_case):
-    _cfg, _jprep, port_args, port_kw = prep_case
-    bad = port_kw["swap_sorted"].clone()
-    bad[0, 0] = ~bad[0, 0]
-    with pytest.raises(ValueError, match="swap flags"):
-        ptile._tile_prep(*port_args, num_layers=8, order=port_kw["order"],
-                         swap_sorted=bad)
+def test_tile_prep_takes_the_sweep_flags_verbatim(prep_case):
+    """The prep packs its face rows by the flags it is given, as the JAX
+    prep does, with no pick of its own beside them: with some of the
+    sweep's flags flipped, its operands are the JAX prep's for the same
+    flipped flags, and a flipped face's u and v rows trade places."""
+    _cfg, _jprep, port_args, port_kw, jax_prep = prep_case
+    swap = port_kw["swap_sorted"]
+    flip = torch.zeros_like(swap)
+    flip[::2, 0] = flip[1::3, 3] = flip[:, 5] = True
+    flipped = swap ^ flip
+    (jcolor, _jdep, _jscene, _jtl, _jcnt, jvol, jface, *_rest) = jax_prep(
+        jnp.asarray(flipped.numpy()))
+    base = ptile._tile_prep(*port_args, **port_kw)
+    color, depth_sel, *_mid, vol_flt, face_flt = ptile._tile_prep(
+        *port_args, num_layers=8, order=port_kw["order"],
+        swap_sorted=flipped)[:7]
+    assert depth_sel is None
+    np.testing.assert_array_equal(n(color), n(jcolor)[..., :color.shape[-1]])
+    np.testing.assert_allclose(n(vol_flt), n(jvol), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(n(face_flt), n(jface), rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(face_flt[flip][:, :3], base[6][flip][:, 3:6],
+                               rtol=0, atol=0)
+    torch.testing.assert_close(face_flt[flip][:, 3:6], base[6][flip][:, :3],
+                               rtol=0, atol=0)
+    torch.testing.assert_close(face_flt[~flip], base[6][~flip], rtol=0,
+                               atol=0)
 
 
 @pytest.mark.parametrize("where", ["none", "top-left", "bottom-right",

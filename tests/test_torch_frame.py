@@ -122,25 +122,30 @@ def test_engine_renders_with_baked_axis():
 
 
 @pytest.mark.parametrize("change", [
-    dict(config=dict(lod_bucket_caps=None)),
-    dict(config=dict(composite_mode="warp")),
-    dict(config=dict(march_mode="reference")),
-    dict(config=dict(composite_mode="gather")),
-    dict(config=dict(point_light=True)),
-    dict(config=dict(adaptive_raymarch=False))])
+    dict(config=dict(lod_bucket_caps=None),
+         passes=("sweep", "unbucketed", "tile")),
+    dict(config=dict(composite_mode="warp"), passes=("sweep", "lod", "warp")),
+    dict(config=dict(march_mode="reference"),
+         passes=("sweep", "reference", "gather")),
+    dict(config=dict(composite_mode="gather"),
+         passes=("sweep", "lod", "gather")),
+    dict(config=dict(point_light=True), passes=("reference", "lod", "tile")),
+    dict(config=dict(adaptive_raymarch=False),
+         passes=("sweep", "unbucketed", "tile"))])
 def test_unported_settings_raise(change):
     """The reference modes, point lights, the warp and gather composites
     and the un-bucketed sweep run in the unsharded frame and in the
-    sharded step alike (tests/test_torch_sharding_modes.py renders them);
-    what still raises is an unknown setting, sharded or not. The name is
-    kept from when the sharded step refused these settings."""
-    cfg = port_config(CONFIGS["f32"].with_(**change.pop("config", {})))
-    pframe.check_supported(cfg, **change)
-    pframe.check_supported(cfg, sharded=True, **change)
+    sharded step alike (tests/test_torch_sharding_modes.py renders them),
+    each with the passes `frame_passes` picks for both; what still raises
+    is an unknown setting. The name is kept from when the sharded step
+    refused these settings."""
+    cfg = port_config(CONFIGS["f32"].with_(**change["config"]))
+    pframe.check_supported(cfg)
+    assert pframe.frame_passes(cfg) == change["passes"]
     for unknown in (dict(march_mode="fast"), dict(light_mode="fast"),
                     dict(composite_mode="scatter")):
         with pytest.raises(ValueError, match="unknown setting"):
-            pframe.check_supported(cfg.with_(**unknown), sharded=True)
+            pframe.check_supported(cfg.with_(**unknown))
 
 
 def test_port_imports_no_jax():

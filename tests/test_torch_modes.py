@@ -144,11 +144,8 @@ def test_sharded_step_refuses_other_settings():
                    dict(adaptive_raymarch=False)):
         cfg = port_config(CFG.with_(**change))
         pframe.check_supported(cfg)
-        pframe.check_supported(cfg, sharded=True)
-    for sharded in (False, True):
-        with pytest.raises(ValueError, match="unknown"):
-            pframe.check_supported(port_config(CFG.with_(march_mode="fast")),
-                                   sharded=sharded)
+    with pytest.raises(ValueError, match="unknown"):
+        pframe.check_supported(port_config(CFG.with_(march_mode="fast")))
 
 
 def test_app_reference_march_and_stats(tmp_path, capsys):

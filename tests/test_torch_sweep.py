@@ -175,8 +175,10 @@ def test_ray_march_view_sweep_lod_matches_jax(lod_case):
 
 
 def test_sweep_flags_are_the_shared_function(lod_case):
-    """The sweep's flags are `warp.catmull_swap_flags` of the sorted rows,
-    exactly what the tile prep recomputes."""
+    """The sweep's flags are `warp.catmull_swap_flags` of the sorted rows.
+    The tile prep packs its face rows by them as given and picks none of
+    its own, so this is the one guard that the frame's faces are oriented
+    by the shared rule."""
     cfg, st, cam, po, lod_cull, basis, _out = lod_case
     ps = pstate.state_from_numpy(jax_state_dict(st))
     ppo = port_per_object(po)
@@ -191,6 +193,32 @@ def test_sweep_flags_are_the_shared_function(lod_case):
         t(basis), pos.world_i, pos.world_view_proj,
         pm.transform_point3(t(cam.eye), pos.world_i), n_eff)
     assert torch.equal(flags, got.swap)
+
+
+def test_bucket_mips_clamps_without_a_floor_upload():
+    """`bucket_mips` clamps x = projected mip + scheme offset straight into
+    [mip_b, max_mip]. Over a grid of projected mips, cube-map routes,
+    bucket levels and deepest mips it equals the form it replaced,
+    clamp(max(x, mip_b), mip_b, max_mip) with mip_b uploaded as a device
+    tensor, value and dtype."""
+    from multivolumes_tpu_torch.render.cull import CullResult
+
+    mips = torch.arange(-1, 7, dtype=torch.int32).repeat_interleave(2)
+    use = torch.tensor([True, False]).repeat(8)
+    k = mips.shape[0]
+    cull = CullResult(torch.ones(k, dtype=torch.bool), mips,
+                      torch.zeros(k, dtype=torch.int32),
+                      torch.ones((k, 6), dtype=torch.bool), use,
+                      torch.zeros(k))
+    ids = torch.arange(k)
+    for mip_b in range(6):
+        for max_mip in range(6):
+            x = torch.clamp(mips, 0, max_mip) + (~use).int()
+            want = torch.clamp(torch.maximum(x, torch.tensor(mip_b)),
+                               mip_b, max_mip).int()
+            got = psw.bucket_mips(cull, ids, mip_b, max_mip)
+            assert got.dtype == want.dtype and torch.equal(got, want), (
+                mip_b, max_mip)
 
 
 def test_flip_proofs_bisect_every_ray_at_once():
