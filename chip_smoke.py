@@ -6,6 +6,7 @@
     python3 chip_smoke.py --profile-sharded-settings   # phase 11 alone,
                                                        # every setting profiled
     python3 chip_smoke.py --mesh-shade   # phases 1, 2 and B8's rows alone
+    python3 chip_smoke.py --raster   # phases 1, 2 and B9's rows alone
 
 Phases (any failure exits non-zero, and no result line is printed):
   1. the card: `nvidia-smi` name and power limit, torch and CUDA versions;
@@ -37,7 +38,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      shade, on the shade of a frame with the test torus at 1280x800 (its
      384 window, the far preset) and at 2560x1440 (the full screen, the
      near preset), colour, velocity and validity within 1e-4 + 1e-4
-     relative, with the kernels one call launches), with
+     relative, with the kernels one call launches; B9, the mesh's
+     raster, on the raster of the same two frames, depth and triangle
+     ids equal), with
      the parity tolerance of the kernel's card test; times of both from
      CUDA events after warm-up, each kernel's bound (below), for B1, B2,
      B2', the B2 band, B4, B5, B5' and B6 the device time of the kernels
@@ -210,12 +213,15 @@ KERNELS = {
     # B8 replaces no Pallas kernel: the JAX frame's deferred shade in XLA
     "mesh_shade": (_CSRC + "mesh_shade.cu",
                    "multivolumes_tpu/render/mesh.py:889"),
+    # B9 replaces no Pallas kernel: the JAX frame's scatter raster in XLA
+    "raster": (_CSRC + "raster.cu", "multivolumes_tpu/render/mesh.py:257"),
 }
 # the kernels of the frame without and with the opaque mesh
 NO_MESH = ("sweep", "sweep_prologue", "composite", "light_self_scan",
            "light_advect_mul", "taa")
 WITH_MESH = ("sweep", "sweep_prologue", "composite_depth",
-             "light_self_scan_sm", "light_advect_mul", "taa", "mesh_shade")
+             "light_self_scan_sm", "light_advect_mul", "taa", "mesh_shade",
+             "raster")
 # summary row name -> (launch-count key, the path whose counts it reports)
 ROW_KERNEL = {"sweep@unbucketed": ("sweep", "unbucketed"),
               "sweep_prologue@depth": ("sweep_prologue", "mesh"),
@@ -231,7 +237,9 @@ ROW_KERNEL = {"sweep@unbucketed": ("sweep", "unbucketed"),
               "taa_band": ("taa_band", "sharded"),
               "raster_bin_eval": ("raster_bin_eval", "raster_bin"),
               "mesh_shade@1280x800-window": ("mesh_shade", "mesh_800p"),
-              "mesh_shade@2560x1440-full": ("mesh_shade", "mesh_1440p")}
+              "mesh_shade@2560x1440-full": ("mesh_shade", "mesh_1440p"),
+              "raster@1280x800-far": ("raster", "raster_800p"),
+              "raster@2560x1440-near": ("raster", "raster_1440p")}
 # the kernels of the un-bucketed frame with the warp composite, and of the
 # frame in full reference semantics (the gather passes have none but B5)
 UNBUCKETED = ("sweep", "light_self_scan", "light_advect_mul", "taa")
@@ -241,7 +249,7 @@ REFERENCE = ("taa",)
 SHARDED = ("sweep", "composite_band", "light_self_scan", "light_advect_mul",
            "taa_band")
 SHARDED_MESH = ("sweep", "composite_depth_band", "light_self_scan_sm",
-                "light_advect_mul", "taa_band", "mesh_shade")
+                "light_advect_mul", "taa_band", "mesh_shade", "raster")
 # the sharded step's other settings: name -> (config change, with the test
 # mesh, the kernels it launches on a mesh with a rows axis; the reference
 # light runs none of B3 / B4, the warp and gather composites none of B2)
@@ -709,8 +717,10 @@ def main() -> int:
                                profile_all=True)
         log(smi_line)
         return 0
-    if sys.argv[1:] == ["--mesh-shade"]:
-        rows, launches = phase_mesh_shade(dev, torus_mesh(MESH_TRIS))
+    if sys.argv[1:] in (["--mesh-shade"], ["--raster"]):
+        phase = (phase_mesh_shade if sys.argv[1] == "--mesh-shade"
+                 else phase_raster)
+        rows, launches = phase(dev, torus_mesh(MESH_TRIS))
         for r in rows:
             key, path = row_kernel(r["name"])
             r["launches"] = launches[path][key]
@@ -732,9 +742,10 @@ def main() -> int:
     results += mesh_results
     launches["mesh"] = phase_demo(mesh_engine, cfg, dev, WITH_MESH,
                                   frames=4, closeup=True)
-    shade_results, shade_launches = phase_mesh_shade(dev, mesh_path)
-    results += shade_results
-    launches.update(shade_launches)
+    for phase in (phase_mesh_shade, phase_raster):
+        phase_results, phase_launches = phase(dev, mesh_path)
+        results += phase_results
+        launches.update(phase_launches)
     torch.cuda.empty_cache()
     t0 = time.time()
     (sharded_results, launches["sharded"],
@@ -1160,6 +1171,111 @@ def phase_mesh_shade(dev, mesh_path):
         check(0 < len(kernels) <= 3, f"{name}: {len(kernels)} kernels a call")
         rows.append(row)
         del engine, probe, calls, a, fields, valid, want
+        torch.cuda.empty_cache()
+    return rows, launches
+
+
+def bound_raster(args, kwargs):
+    """B9: bytes, the clip positions and indices read once, the (T, 16)
+    table and the sort key written once, the z-buffer (4 bytes a pixel)
+    filled, its words read back once, the depth and ids (12 bytes a
+    pixel) written; operations, a table row's 40 f32 operations a
+    triangle, each coverage sample's 30 (stride, snap, barycentrics,
+    depth, quantise) and each dense triangle's 25 a pixel it z-tests."""
+    from multivolumes_tpu_torch.render import mesh as mesh_lib
+
+    clip, idx, width, height = args[:4]
+    n_tris = idx.shape[0]
+    band = kwargs.get("band")
+    rows = height // band[1] if band else height
+    levers = {key: v for key, v in kwargs.items() if key != "impl"}
+    _ordered, segments = mesh_lib.emit_segments(
+        n_tris, levers.get("k", 4),
+        levers.get("big_tiers", mesh_lib._BIG_TIERS),
+        levers.get("capacity"), levers.get("dense_top", 0),
+        levers.get("tail"), levers.get("small_tiers"))
+    _lo, count, kk, _by_rank, start = segments[-1]
+    emitted = start + count * kk * kk
+    dense = mesh_lib.raster_samples(n_tris, width, height,
+                                    **levers) - emitted
+    nbytes = (_nbytes(clip, idx) + n_tris * (64 + 4)
+              + rows * width * (4 + 4 + 12))
+    return nbytes, 40.0 * n_tris + 30.0 * emitted + 25.0 * dense
+
+
+def phase_raster(dev, mesh_path):
+    """B9 against its plain version on the raster of a frame with the test
+    torus (the demo's placement, 4 volumes) at 1280x800 from the orbit's
+    first pose (the far preset, the 384 dense window) and at 2560x1440
+    from the same pose (the near preset, the full screen): the
+    `raster@<size>` rows (depth and ids equal), the kernels one call
+    launches (profiler), and -> (rows, {path: launches}), the launch
+    counts of the captured frame at each size under "raster_800p" and
+    "raster_1440p"."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from multivolumes_tpu_torch import ops
+    from multivolumes_tpu_torch.config import RenderConfig
+    from multivolumes_tpu_torch.core import camera as cam_lib
+    from multivolumes_tpu_torch.engine import MultiRayCaster
+    from multivolumes_tpu_torch.render import frame as frame_lib
+    from multivolumes_tpu_torch.render import mesh as mesh_lib
+
+    rows, launches = [], {}
+    for (w, h), name, path in (((1280, 800), "1280x800-far", "raster_800p"),
+                               ((2560, 1440), "2560x1440-near",
+                                "raster_1440p")):
+        cfg = RenderConfig(**dict(DEMO, width=w, height=h, num_volumes=4,
+                                  num_volume_srcs=2))
+        engine = MultiRayCaster(cfg, device=dev)
+        engine.set_mesh(mesh_path)
+        preset = engine.select_raster_preset((0.0, 6.0, 60.0))
+        log(f"[raster] {name}: preset {preset}")
+        check(preset == ("far" if w == 1280 else "near"),
+              f"{name}: preset {preset}")
+        cam = cam_lib.orbit_camera(0.0, cfg.aspect_ratio, device=dev)
+        probe = clone_state(engine.state)
+        ops.reset_launches()
+        with capture([(mesh_lib, "rasterize")]) as calls:
+            frame_lib.render_frame(probe, cam, engine.config)
+        torch.cuda.synchronize()
+        launches[path] = dict(ops.LAUNCHES)
+        log(f"[raster] {name}: the frame launched raster "
+            f"{launches[path]['raster']} times")
+        check(launches[path]["raster"] == 1,
+              f"{name}: {launches[path]['raster']} raster launches in the "
+              f"frame")
+        a, k = calls["rasterize"]
+        k = {key: v for key, v in k.items() if key != "impl"}
+        row = compare_kernel(f"raster@{name}", mesh_lib.rasterize, a, k,
+                             None, bound_raster, reps=(20, 2),
+                             device_kernel=("raster_setup_kernel",
+                                            "raster_emit_kernel",
+                                            "raster_resolve_kernel"))
+        depth, tri = mesh_lib.rasterize(*a, **k, impl="kernel")
+        torch.cuda.synchronize()
+        log(f"[raster] {name}: {int((tri >= 0).sum())} of {tri.numel()} "
+            f"pixels covered; levers {k}")
+        # three calls: a profile now and then drops its first event
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                mesh_lib.rasterize(*a, **k, impl="kernel")
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        own = {b9: sum(1 for e in kernels if b9 in e)
+               for b9 in ("raster_setup_kernel", "raster_emit_kernel",
+                          "raster_resolve_kernel")}
+        log(f"[raster] {name}: 3 calls launched {len(kernels)} device "
+            f"operations, B9's {own} (the rest the argsort's): "
+            f"{sorted(set(kernels))}")
+        check(all(0 < n <= 3 for n in own.values()),
+              f"{name}: B9 launched {own} in 3 calls")
+        rows.append(row)
+        del engine, probe, calls, a, depth, tri
         torch.cuda.empty_cache()
     return rows, launches
 
@@ -2340,10 +2456,13 @@ PASS_KERNELS = {"sweep_kernel": "sweep", "sweep_prologue_kernel": "sweep",
                 "tile_composite_kernel": "composite",
                 "mesh_tile_kernel": "composite", "self_scan_kernel": "light",
                 "taa_resolve_kernel": "taa", "mesh_planes_kernel": "mesh",
-                "mesh_shade_kernel": "mesh"}
+                "mesh_shade_kernel": "mesh", "raster_setup_kernel": "mesh",
+                "raster_emit_kernel": "mesh",
+                "raster_resolve_kernel": "mesh"}
 # the kernels of PASS_KERNELS that only a frame with the mesh launches
 MESH_ONLY_KERNELS = ("mesh_tile_kernel", "mesh_planes_kernel",
-                     "mesh_shade_kernel")
+                     "mesh_shade_kernel", "raster_setup_kernel",
+                     "raster_emit_kernel", "raster_resolve_kernel")
 
 
 def phase_tools(cfg, dev, mesh_path):
@@ -2451,21 +2570,26 @@ def phase_tools(cfg, dev, mesh_path):
 # the hand kernels one bench frame launches: profiler kernel name ->
 # launches, and the launch counts, without and with the opaque mesh (B1
 # and B7 once per LOD bucket; B3 and B4 are both `self_scan_kernel`; B8
-# once with the mesh, as its planes and its shade)
+# once with the mesh, as its planes and its shade; B9 once with the mesh,
+# as its setup, emit and resolve)
 BENCH_FRAME = {
     False: ({"sweep_kernel": 3, "sweep_prologue_kernel": 3,
              "tile_composite_kernel": 1, "mesh_tile_kernel": 0,
              "self_scan_kernel": 2, "taa_resolve_kernel": 1,
-             "mesh_planes_kernel": 0, "mesh_shade_kernel": 0},
+             "mesh_planes_kernel": 0, "mesh_shade_kernel": 0,
+             "raster_setup_kernel": 0, "raster_emit_kernel": 0,
+             "raster_resolve_kernel": 0},
             {"sweep": 3, "sweep_prologue": 3, "composite": 1,
              "light_self_scan": 1, "light_advect_mul": 1, "taa": 1}),
     True: ({"sweep_kernel": 3, "sweep_prologue_kernel": 3,
             "tile_composite_kernel": 1, "mesh_tile_kernel": 1,
             "self_scan_kernel": 2, "taa_resolve_kernel": 1,
-            "mesh_planes_kernel": 1, "mesh_shade_kernel": 1},
+            "mesh_planes_kernel": 1, "mesh_shade_kernel": 1,
+            "raster_setup_kernel": 1, "raster_emit_kernel": 1,
+            "raster_resolve_kernel": 1},
            {"sweep": 3, "sweep_prologue": 3, "composite_depth": 1,
             "light_self_scan_sm": 1, "light_advect_mul": 1, "taa": 1,
-            "mesh_shade": 1}),
+            "mesh_shade": 1, "raster": 1}),
 }
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "mode"}
 
@@ -2489,7 +2613,7 @@ def phase_bench(dev, mesh_path, smi_line):
     from multivolumes_tpu_torch.render import mesh as mesh_lib
 
     cfg, frames = bench.bench_config(True)
-    plains = ((mesh_lib, "shade_plain"),
+    plains = ((mesh_lib, "shade_plain"), (mesh_lib, "rasterize_plain"),
               (sweep_ops, "sweep_march_plain"),
               (composite_ops, "tile_composite_plain"),
               (light_ops, "light_self_scan_plain"),

@@ -55,6 +55,8 @@ SIGNATURES = {
     "mv_taa_resolve_band": [_P, _P, _P, _P, _I, _I, _P],
     "mv_raster_bin_eval": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "mv_mesh_shade": [_P] * 19 + [_I] * 18 + [_P],
+    "mv_raster_setup": [_P] * 7 + [_I] * 5 + [_P],
+    "mv_raster_draw": [_P] * 5 + [_I, _P, _P, _I, _P, _P] + [_I] * 7 + [_P],
 }
 
 

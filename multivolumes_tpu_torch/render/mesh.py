@@ -19,18 +19,21 @@ z-buffer plus a deferred shade:
 
 The tier ladders, the capacity, the small-triangle tail and the dense
 analytic top decide which coverage samples exist, so they decide the
-image: they are ported as they are. The z-buffer is one
-`scatter_reduce_(..., "amin")` on int64: PyTorch has no full uint32
-arithmetic, so the quantised depth and the packing are kept in int64,
-with the JAX package's 0xFFFFFFFF sentinel and its extra drop slot. A
-raster kernel written by hand is later work (ROADMAP B6). Windows of the
-screen are cut and pasted back by index arithmetic on device tensors, so
-the pass reads no device value on the host. Under a device mesh with a
-rows axis the raster and the shade run in row bands
-(`render_mesh_sharded`). The frame's record counts, from the host, the
-coverage samples the raster launches (`raster_samples`, counter
-`mesh.raster_samples`) and the pixels the shade covers (`mesh.shade_px`);
-a raster on the near ladder is the step span `mesh.near`.
+image: they are ported as they are. On the card the raster is B9
+(`ops/raster.py`, `csrc/raster.cu`): the per-triangle table, every
+emit segment in one launch with an atomic min a drawn sample, and the
+dense pass fused with the decode. Its plain version, `rasterize_plain`,
+makes the z-buffer one `scatter_reduce_(..., "amin")` on int64: PyTorch
+has no full uint32 arithmetic, so the quantised depth and the packing
+are kept in int64, with the JAX package's 0xFFFFFFFF sentinel and its
+extra drop slot. Windows of the screen are cut and pasted back by index
+arithmetic on device tensors, so the pass reads no device value on the
+host. Under a device mesh with a rows axis the raster and the shade run
+in row bands (`render_mesh_sharded`). The frame's record counts, from
+the host, the coverage samples the raster launches (`raster_samples`,
+counter `mesh.raster_samples`) and the pixels the shade covers
+(`mesh.shade_px`); a raster on the near ladder is the step span
+`mesh.near`.
 """
 
 from __future__ import annotations
@@ -48,12 +51,13 @@ from multivolumes_tpu_torch.core import math3d, sh as sh_lib
 from multivolumes_tpu_torch.core.camera import Camera
 from multivolumes_tpu_torch.core.halton import halton_jitter
 from multivolumes_tpu_torch.ops import mesh_shade as shade_ops
+from multivolumes_tpu_torch.ops import raster as raster_ops
 from multivolumes_tpu_torch.ops.mesh_shade import Span
 from multivolumes_tpu_torch.utils import timing
 
 _ZQ = float(1 << 24)  # depth quantization of the z-buffer
 _BIG = 0xFFFFFFFF     # empty / dead-sample sentinel (uint32 max, in int64)
-_TBITS = 17           # triangle-id bits of the packed z-buffer word
+_TBITS = raster_ops.TBITS  # triangle-id bits of the packed z-buffer word
 
 
 class MeshOutput(NamedTuple):
@@ -323,13 +327,63 @@ def raster_samples(n_tris: int, width: int, height: int, k: int = 4,
     return n
 
 
+@functools.lru_cache(maxsize=64)  # a frame's levers repeat every frame
+def emit_segments(n_tris: int, k: int, big_tiers, capacity,
+                  dense_top: int, tail, small_tiers):
+    """`_emit_plan` as B9's segment table -> (ordered, segments): each
+    segment (lo, count, kk, by_rank, start) emits the ranks [lo, lo +
+    count) of the by-edge order (by_rank 1), or the triangles [lo, lo +
+    count) in index order (0), on a kk x kk grid, as the coverage samples
+    [start, start + count kk^2) of the launch; empty emits are left out.
+    The levers are tuples (hashable), as the config holds them."""
+    ordered, plan = _emit_plan(n_tris, k, big_tiers, capacity, dense_top,
+                               tail, small_tiers)
+    segments, start = [], 0
+    for lo, hi, kk in plan:
+        by_rank = int(lo is not None)
+        lo, hi = (0, n_tris) if lo is None else (min(lo, n_tris),
+                                                 min(hi, n_tris))
+        if hi > lo:
+            segments.append((lo, hi - lo, kk, by_rank, start))
+            start += (hi - lo) * kk * kk
+    return ordered, tuple(segments)
+
+
 def rasterize(verts_clip, indices, width: int, height: int, k: int = 4,
               big_tiers=_BIG_TIERS,
               want_ids: bool = True, cull: int = 0,
               capacity: int | None = None, dense_top: int = 0,
               tail: tuple | None = None, small_tiers: tuple | None = None,
-              dense_window: int | None = None, band: tuple | None = None):
-    """Scatter z-buffer rasterization with tiered coverage.
+              dense_window: int | None = None, band: tuple | None = None,
+              impl: str | None = None):
+    """Scatter z-buffer rasterization with tiered coverage (the levers:
+    `rasterize_plain`) -> (depth (H, W), tri_id (H, W) int64). B9
+    (`ops/raster.py`) on CUDA tensors, `rasterize_plain` on the CPU;
+    `impl` forces a side (`ops`'s dispatch rule)."""
+    if not ops.use_kernel(impl, verts_clip):
+        return rasterize_plain(
+            verts_clip, indices, width, height, k=k, big_tiers=big_tiers,
+            want_ids=want_ids, cull=cull, capacity=capacity,
+            dense_top=dense_top, tail=tail, small_tiers=small_tiers,
+            dense_window=dense_window, band=band)
+    ordered, segments = emit_segments(indices.shape[0], k, big_tiers,
+                                      capacity, dense_top, tail, small_tiers)
+    return raster_ops.raster(
+        verts_clip, indices, segments, ordered=ordered, width=width,
+        height=height, want_ids=want_ids, cull=cull, dense_top=dense_top,
+        dense_window=dense_window, band=band)
+
+
+def rasterize_plain(verts_clip, indices, width: int, height: int,
+                    k: int = 4, big_tiers=_BIG_TIERS,
+                    want_ids: bool = True, cull: int = 0,
+                    capacity: int | None = None, dense_top: int = 0,
+                    tail: tuple | None = None,
+                    small_tiers: tuple | None = None,
+                    dense_window: int | None = None,
+                    band: tuple | None = None):
+    """Scatter z-buffer rasterization with tiered coverage; the plain
+    version of B9.
 
     verts_clip (V, 4) clip positions; indices (T, 3) int64. Returns
     (depth (H, W) in [0, 1], tri_id (H, W) int64, -1 = empty).
@@ -682,8 +736,9 @@ def shade_base_pass(ws, nrm, ls, cs, ts, eye, light_pos, light_color,
 def render_shadow_map(state, config: RenderConfig) -> torch.Tensor:
     """Depth-only light-view raster (`RenderShadow`,
     `ObjectRenderer.cpp:220-243`), always on the near ladder (the
-    light view is a fixed orthographic frame). The engine calls it when
-    the mesh or the light changes; frames read the cached map."""
+    light view is a fixed orthographic frame), B9 on the card. The
+    engine calls it when the mesh or the light changes; frames read the
+    cached map."""
     sm = config.shadow_map_size
     shadow_wvp = state.mesh_world @ shadow_view_proj(state)
     clip_sh = math3d.transform_point(state.mesh_verts[:, :3], shadow_wvp)
@@ -873,8 +928,9 @@ def render_mesh(state, camera: Camera, config: RenderConfig,
     raster_far_bound), the dense raster pass and the deferred shade run
     in a `mesh_shade_window` square around the mesh when the window
     provably contains it; the near preset shades the full screen. The
-    shade is B8 (`ops/mesh_shade.py`, `impl` forces its side). Under a
-    device mesh: `render_mesh_sharded`."""
+    raster is B9 (`ops/raster.py`) and the shade B8 (`ops/mesh_shade.py`),
+    `impl` forces their side. Under a device mesh:
+    `render_mesh_sharded`."""
     width, height = config.width, config.height
     with timing.span("mesh.operands"):
         op = _frame_operands(state, camera, config)
@@ -884,7 +940,7 @@ def render_mesh(state, camera: Camera, config: RenderConfig,
             else timing.span("mesh.near")):
         depth, tri_id = rasterize(
             op.clip_jit, state.mesh_indices, width, height,
-            dense_window=dense_window, **op.raster_kw)
+            dense_window=dense_window, impl=impl, **op.raster_kw)
     timing.add("mesh.raster_samples", raster_samples(
         state.mesh_indices.shape[0], width, height,
         dense_window=dense_window, **op.raster_kw))
@@ -915,7 +971,8 @@ def render_mesh_sharded(states: dict, cameras: dict, config: RenderConfig,
 
     With a "rows" axis, H % rows == 0 and T < 2^17, band r rasterizes its
     rows on `mesh.device(r, 0)` (the per-triangle emit replicates, the
-    scatter-min is the band's own) and the depth bands are all-gathered
+    z-buffer is the band's own; B9 on the card, `impl` forces its side)
+    and the depth bands are all-gathered
     onto every physical device: the sweep on every volume shard and the
     composite on every band need the whole depth map. The deferred shade
     then runs
@@ -953,7 +1010,7 @@ def render_mesh_sharded(states: dict, cameras: dict, config: RenderConfig,
                  for dev in mesh.physical}
     band_devs = [mesh.device(r, 0) for r in range(rows)]
     bands = [rasterize(frame_ops[dev].clip_jit, states[dev].mesh_indices,
-                       width, height, band=(r, rows),
+                       width, height, band=(r, rows), impl=impl,
                        **frame_ops[dev].raster_kw)
              for r, dev in enumerate(band_devs)]
     depth = coll.all_gather([b[0] for b in bands], 0, mesh, "mesh_depth")
