@@ -7,6 +7,7 @@
                                                        # every setting profiled
     python3 chip_smoke.py --mesh-shade   # phases 1, 2 and B8's rows alone
     python3 chip_smoke.py --raster   # phases 1, 2 and B9's rows alone
+    python3 chip_smoke.py --light    # phases 1, 2 and B10's / B11's rows
 
 Phases (any failure exits non-zero, and no result line is printed):
   1. the card: `nvidia-smi` name and power limit, torch and CUDA versions;
@@ -215,13 +216,20 @@ KERNELS = {
                    "multivolumes_tpu/render/mesh.py:889"),
     # B9 replaces no Pallas kernel: the JAX frame's scatter raster in XLA
     "raster": (_CSRC + "raster.cu", "multivolumes_tpu/render/mesh.py:257"),
+    # B10 and B11 replace no Pallas kernel: the JAX light glue in XLA
+    "light_prologue": (_CSRC + "lightsweep_prep.cu",
+                       "multivolumes_tpu/render/lightsweep.py:100"),
+    "light_epilogue": (_CSRC + "lightsweep_prep.cu",
+                       "multivolumes_tpu/render/lightsweep.py:527"),
 }
+# the light cohort update's kernels around B3 / B4 (B10, B11)
+LIGHT = ("light_prologue", "light_occlusion", "light_epilogue")
 # the kernels of the frame without and with the opaque mesh
 NO_MESH = ("sweep", "sweep_prologue", "composite", "light_self_scan",
-           "light_advect_mul", "taa")
+           "light_advect_mul", *LIGHT, "taa")
 WITH_MESH = ("sweep", "sweep_prologue", "composite_depth",
-             "light_self_scan_sm", "light_advect_mul", "taa", "mesh_shade",
-             "raster")
+             "light_self_scan_sm", "light_advect_mul", *LIGHT, "taa",
+             "mesh_shade", "raster")
 # summary row name -> (launch-count key, the path whose counts it reports)
 ROW_KERNEL = {"sweep@unbucketed": ("sweep", "unbucketed"),
               "sweep_prologue@depth": ("sweep_prologue", "mesh"),
@@ -239,17 +247,20 @@ ROW_KERNEL = {"sweep@unbucketed": ("sweep", "unbucketed"),
               "mesh_shade@1280x800-window": ("mesh_shade", "mesh_800p"),
               "mesh_shade@2560x1440-full": ("mesh_shade", "mesh_1440p"),
               "raster@1280x800-far": ("raster", "raster_800p"),
-              "raster@2560x1440-near": ("raster", "raster_1440p")}
+              "raster@2560x1440-near": ("raster", "raster_1440p"),
+              "light_prologue": ("light_prologue", "light"),
+              "light_epilogue": ("light_epilogue", "light")}
 # the kernels of the un-bucketed frame with the warp composite, and of the
 # frame in full reference semantics (the gather passes have none but B5)
-UNBUCKETED = ("sweep", "light_self_scan", "light_advect_mul", "taa")
+UNBUCKETED = ("sweep", "light_self_scan", "light_advect_mul", *LIGHT, "taa")
 REFERENCE = ("taa",)
 # the kernels of the sharded frame step on a mesh with a rows axis,
 # without and with the opaque mesh
 SHARDED = ("sweep", "composite_band", "light_self_scan", "light_advect_mul",
-           "taa_band")
+           *LIGHT, "taa_band")
 SHARDED_MESH = ("sweep", "composite_depth_band", "light_self_scan_sm",
-                "light_advect_mul", "taa_band", "mesh_shade", "raster")
+                "light_advect_mul", *LIGHT, "taa_band", "mesh_shade",
+                "raster")
 # the sharded step's other settings: name -> (config change, with the test
 # mesh, the kernels it launches on a mesh with a rows axis; the reference
 # light runs none of B3 / B4, the warp and gather composites none of B2)
@@ -257,7 +268,7 @@ SETTINGS_SHARDED = {
     "unbucketed tile": (dict(lod_bucket_caps=None), False, SHARDED),
     "unbucketed warp": (dict(lod_bucket_caps=None, composite_mode="warp"),
                         False, ("sweep", "light_self_scan",
-                                "light_advect_mul", "taa_band")),
+                                "light_advect_mul", *LIGHT, "taa_band")),
     "point light": (dict(point_light=True), False,
                     ("sweep", "sweep_prologue", "composite_band",
                      "taa_band")),
@@ -717,9 +728,9 @@ def main() -> int:
                                profile_all=True)
         log(smi_line)
         return 0
-    if sys.argv[1:] in (["--mesh-shade"], ["--raster"]):
-        phase = (phase_mesh_shade if sys.argv[1] == "--mesh-shade"
-                 else phase_raster)
+    if sys.argv[1:] in (["--mesh-shade"], ["--raster"], ["--light"]):
+        phase = {"--mesh-shade": phase_mesh_shade, "--raster": phase_raster,
+                 "--light": phase_light}[sys.argv[1]]
         rows, launches = phase(dev, torus_mesh(MESH_TRIS))
         for r in rows:
             key, path = row_kernel(r["name"])
@@ -742,7 +753,7 @@ def main() -> int:
     results += mesh_results
     launches["mesh"] = phase_demo(mesh_engine, cfg, dev, WITH_MESH,
                                   frames=4, closeup=True)
-    for phase in (phase_mesh_shade, phase_raster):
+    for phase in (phase_mesh_shade, phase_raster, phase_light):
         phase_results, phase_launches = phase(dev, mesh_path)
         results += phase_results
         launches.update(phase_launches)
@@ -1277,6 +1288,208 @@ def phase_raster(dev, mesh_path):
         rows.append(row)
         del engine, probe, calls, a, depth, tri
         torch.cuda.empty_cache()
+    return rows, launches
+
+
+def _rel_err(g, w):
+    """The largest |g - w|; fails beyond 1e-4 + 1e-4 |w| (B10's limit
+    where the plain version is a matrix product)."""
+    err = (g - w).abs()
+    beyond = int((err > 1e-4 + 1e-4 * w.abs()).sum())
+    check(beyond == 0, f"{beyond} of {g.numel()} elements beyond 1e-4 + "
+          f"1e-4 rel (max {float(err.max()):.3e})")
+    return float(err.max())
+
+
+def light_b10(rho_light, tex_ids, ids, per_object, light_dir, step, axis,
+              s_out_c, sout_cache, shadow_map=None, shadow_vp=None,
+              impl=None):
+    """B10 (prologue and occlusion launches) or its plain version on the
+    same operands, B3's footprints `s_out_c` given -> (rho_o, du, dv,
+    f_corr, t_ins[, sm_vol, z_entry, dz_slice, soft])."""
+    from multivolumes_tpu_torch.ops import lightsweep_prep as prep_ops
+    from multivolumes_tpu_torch.render import lightsweep as ls
+
+    if impl == "kernel":
+        prep = prep_ops.light_prologue(
+            rho_light, tex_ids, ids, per_object, light_dir, step, axis,
+            shadow_map=shadow_map, shadow_vp=shadow_vp)
+        t_ins = prep_ops.light_occlusion(prep, s_out_c, sout_cache)
+        return (prep.rho_o, prep.du, prep.dv, prep.f_corr, t_ins,
+                *prep.sm.values())
+    geo, rho_o, mv_in, mu_in, sm = ls.prologue_plain(
+        rho_light[tex_ids[ids]], per_object, light_dir, step, axis, ids,
+        shadow_map, shadow_vp)
+    sout_cache[ids] = s_out_c
+    t_ins = ls.occlusion_entry(geo, sout_cache, ids, mv_in, mu_in)
+    return (rho_o, geo.du[ids], geo.dv[ids], geo.f_corr[ids], t_ins,
+            *sm.values())
+
+
+def light_b11(fields, prep, state, axis, ids, store, impl=None):
+    """B11 with the stores into `store`'s (light maps, sweep stack), or
+    its plain version on the same oriented fields -> the two stacks' rows
+    at `ids`."""
+    from multivolumes_tpu_torch.ops import lightsweep_prep as prep_ops
+    from multivolumes_tpu_torch.render import lightsweep as ls
+    from multivolumes_tpu_torch.scene.state import to_light_sweep
+
+    maps, sweep = store
+    st = state
+    if impl == "kernel":
+        prep_ops.light_epilogue(fields, prep, st.rho_light, st.ao_static,
+                                st.grad_dir, st.vol_tex_ids, st.sh_coeffs,
+                                st.ambient, st.light_color, True,
+                                store=(maps, sweep, ids))
+    else:
+        tex = st.vol_tex_ids[ids]
+        shadow = ls.orient_back(fields, prep.scal[5] != 0.0, axis)
+        out = ls._shade_light_fields(shadow, st.rho_light[tex], tex,
+                                     st.ao_static, st.grad_dir, st.sh_coeffs,
+                                     st.ambient, st.light_color, True)
+        maps[ids] = out
+        sweep[ids] = to_light_sweep(out, sweep.dtype)
+    return maps[ids], sweep[ids]
+
+
+def bound_light_b10(args, kwargs):
+    """B10: bytes, the cohort's density read and its oriented copy
+    written, the footprints of every volume read once (B3's of the
+    cohort, the cache's of the rest), t_ins written and, with the shadow
+    map, the map's texels that the (2L)^2 grid's 4 taps read and the two
+    entry planes written; operations: none counted (a few hundred per
+    texel of t_ins, far under the bytes' time)."""
+    rho_light, _tex, ids = args[:3]
+    cache = args[8]
+    c, l = ids.shape[0], rho_light.shape[1]
+    nbytes = 2 * c * l ** 3 * 4 + _nbytes(cache) + c * l * l * 4
+    sm = kwargs.get("shadow_map")
+    if sm is not None:
+        nbytes += min(sm.numel(), 4 * (2 * l) ** 2) * 4 + 2 * c * l * l * 4
+    return nbytes, 0.0
+
+
+def bound_light_b11(args, kwargs):
+    """B11: bytes, B4's fields, the density, the AO and the three normal
+    planes read, the f32 map rows (3 channels) and the sweep rows (4
+    channels) written; operations, the SH irradiance and the shade (about
+    45 a channel, 135 a voxel)."""
+    fields, _prep, _st, _axis, _ids, store = args[:6]
+    vox = fields.numel()
+    sweep = store[1]
+    return vox * 4 * 6 + vox * 3 * 4 + vox * 4 * sweep.element_size(), \
+        135.0 * vox
+
+
+def phase_light(dev, mesh_path):
+    """B10 and B11 against their plain versions on the demo's cohort of
+    one (frame 0's volume, N = 64, L = 96, the default light along z),
+    without and with the test torus's 1024^2 shadow map: the
+    `light_prologue@C1[-sm]` rows (B10's two launches: the geometry
+    scalars and the density equal, t_ins and the entry planes within
+    1e-4 + 1e-4 rel) and the `light_epilogue@C1[-sm]` rows (B11 on the
+    same fields with its stores: equal), each with its kernels' device
+    time; then the whole cohort update's host dispatch and device time
+    through B10 / B11 against the plain glue around the same B3 / B4,
+    and the demo frame's launches -> (rows, {"light": launches})."""
+    import torch
+
+    from multivolumes_tpu_torch import ops
+    from multivolumes_tpu_torch.config import RenderConfig, SharedConsts
+    from multivolumes_tpu_torch.core import camera as cam_lib
+    from multivolumes_tpu_torch.engine import MultiRayCaster
+    from multivolumes_tpu_torch.ops import lightsweep as light_ops
+    from multivolumes_tpu_torch.ops import lightsweep_prep as prep_ops
+    from multivolumes_tpu_torch.render import frame as frame_lib
+    from multivolumes_tpu_torch.render import lightsweep as ls
+    from multivolumes_tpu_torch.render import mesh as mesh_lib
+    from multivolumes_tpu_torch.render.perframe import build_per_object
+    from multivolumes_tpu_torch.scene.state import to_light_sweep
+
+    cfg = RenderConfig(**dict(DEMO, shadow_map_size=1024))
+    engine = MultiRayCaster(cfg, device=dev)
+    engine.set_mesh(mesh_path)
+    st = engine.state
+    axis = ls.light_axis(st.light_pos)
+    po = build_per_object(st.volume_worlds,
+                          torch.eye(4, dtype=torch.float32, device=dev))
+    ld = st.light_pos[:3] / torch.linalg.norm(st.light_pos[:3])
+    step = SharedConsts.MAX_DIST / cfg.max_light_samples
+    ids = frame_lib._cohort(cfg, 0, dev)
+    vp = mesh_lib.shadow_view_proj(st)
+    rows = []
+    for tag, sm in (("", None), ("-sm", st.mesh_shadow_map)):
+        smk = {} if sm is None else dict(shadow_map=sm, shadow_vp=vp)
+        prep = prep_ops.light_prologue(st.rho_light, st.vol_tex_ids, ids,
+                                       po, ld, step, axis, **smk)
+        here, s_out_c = light_ops.light_self_scan(
+            prep.rho_o, prep.du, prep.dv, prep.f_corr, **prep.sm)
+        cache = st.light_sout.clone()
+        a = (st.rho_light, st.vol_tex_ids, ids, po, ld, step, axis, s_out_c,
+             cache)
+        got = light_b10(*a, impl="kernel", **smk)
+        want = light_b10(*a, impl="plain", **smk)
+        torch.cuda.synchronize()
+        for i in (0, 1, 2, 3) + ((7, 8) if sm is not None else ()):
+            check(torch.equal(got[i], want[i]),
+                  f"light_prologue{tag}: output {i} differs from plain")
+        rows.append(compare_kernel(
+            f"light_prologue@C1{tag}", light_b10, a, smk, _rel_err,
+            bound_light_b10, reps=(50, 5),
+            device_kernel=("light_prologue_kernel", "light_occlusion_kernel")))
+        t_ins = prep_ops.light_occlusion(prep, s_out_c, cache)
+        fields = light_ops.light_advect_mul(here, t_ins, prep.du, prep.dv)
+        store = (st.light_maps.clone(), st.light_sweep.clone())
+        rows.append(compare_kernel(
+            f"light_epilogue@C1{tag}", light_b11,
+            (fields, prep, st, axis, ids, store), {}, None, bound_light_b11,
+            reps=(50, 5), device_kernel="light_epilogue_kernel"))
+
+        # the whole cohort update: host dispatch (no sync) and device time
+        def update(kernels, sm=sm):
+            kw = {} if sm is None else dict(shadow_map=sm, shadow_vp=vp)
+            if kernels:
+                return ls.ray_march_light_sweep_update(
+                    st.rho_light, st.ao_static, st.grad_dir, st.vol_tex_ids,
+                    po, st.light_pos, st.light_color, st.ambient,
+                    st.sh_coeffs, cfg.max_light_samples, axis, sub_ids=ids,
+                    sout_cache=cache, store=(*store, ids), **kw)
+            # the parent's path: the plain glue, shade and stores
+            rho = st.rho_light[st.vol_tex_ids[ids]]
+            shadow, _ = ls.light_transmittance(
+                rho, po, ld, step, axis, sub_ids=ids, sout_cache=cache,
+                **kw)
+            maps = ls._shade_light_fields(
+                shadow, rho, st.vol_tex_ids[ids], st.ao_static, st.grad_dir,
+                st.sh_coeffs, st.ambient, st.light_color, True)
+            store[0][ids] = maps
+            store[1][ids] = to_light_sweep(maps, store[1].dtype)
+            return maps
+
+        for kernels in (False, True, True, False):
+            host = []
+            for _ in range(21):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                update(kernels)
+                host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            dev_ms = cuda_ms(lambda k=kernels: update(k), 20)
+            log(f"[light] cohort update{tag} "
+                f"{'B10/B11' if kernels else 'plain glue'}: host dispatch "
+                f"median {sorted(host)[10]:.3f} ms, call {dev_ms:.3f} ms "
+                f"(events)")
+    cam = cam_lib.orbit_camera(0.0, cfg.aspect_ratio, device=dev)
+    probe = clone_state(st)
+    ops.reset_launches()
+    frame_lib.render_frame(probe, cam, engine.config)
+    torch.cuda.synchronize()
+    launches = {"light": dict(ops.LAUNCHES)}
+    check(all(launches["light"][k] == 1 for k in (
+        "light_prologue", "light_occlusion", "light_epilogue")),
+        f"the mesh frame's light launches {launches['light']}")
+    del engine, probe
+    torch.cuda.empty_cache()
     return rows, launches
 
 
@@ -2458,7 +2671,10 @@ PASS_KERNELS = {"sweep_kernel": "sweep", "sweep_prologue_kernel": "sweep",
                 "taa_resolve_kernel": "taa", "mesh_planes_kernel": "mesh",
                 "mesh_shade_kernel": "mesh", "raster_setup_kernel": "mesh",
                 "raster_emit_kernel": "mesh",
-                "raster_resolve_kernel": "mesh"}
+                "raster_resolve_kernel": "mesh",
+                "light_prologue_kernel": "light",
+                "light_occlusion_kernel": "light",
+                "light_epilogue_kernel": "light"}
 # the kernels of PASS_KERNELS that only a frame with the mesh launches
 MESH_ONLY_KERNELS = ("mesh_tile_kernel", "mesh_planes_kernel",
                      "mesh_shade_kernel", "raster_setup_kernel",
@@ -2578,18 +2794,23 @@ BENCH_FRAME = {
              "self_scan_kernel": 2, "taa_resolve_kernel": 1,
              "mesh_planes_kernel": 0, "mesh_shade_kernel": 0,
              "raster_setup_kernel": 0, "raster_emit_kernel": 0,
-             "raster_resolve_kernel": 0},
+             "raster_resolve_kernel": 0, "light_prologue_kernel": 1,
+             "light_occlusion_kernel": 1, "light_epilogue_kernel": 1},
             {"sweep": 3, "sweep_prologue": 3, "composite": 1,
-             "light_self_scan": 1, "light_advect_mul": 1, "taa": 1}),
+             "light_self_scan": 1, "light_advect_mul": 1,
+             "light_prologue": 1, "light_occlusion": 1,
+             "light_epilogue": 1, "taa": 1}),
     True: ({"sweep_kernel": 3, "sweep_prologue_kernel": 3,
             "tile_composite_kernel": 1, "mesh_tile_kernel": 1,
             "self_scan_kernel": 2, "taa_resolve_kernel": 1,
             "mesh_planes_kernel": 1, "mesh_shade_kernel": 1,
             "raster_setup_kernel": 1, "raster_emit_kernel": 1,
-            "raster_resolve_kernel": 1},
+            "raster_resolve_kernel": 1, "light_prologue_kernel": 1,
+            "light_occlusion_kernel": 1, "light_epilogue_kernel": 1},
            {"sweep": 3, "sweep_prologue": 3, "composite_depth": 1,
-            "light_self_scan_sm": 1, "light_advect_mul": 1, "taa": 1,
-            "mesh_shade": 1, "raster": 1}),
+            "light_self_scan_sm": 1, "light_advect_mul": 1,
+            "light_prologue": 1, "light_occlusion": 1, "light_epilogue": 1,
+            "taa": 1, "mesh_shade": 1, "raster": 1}),
 }
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "mode"}
 
@@ -2610,6 +2831,7 @@ def phase_bench(dev, mesh_path, smi_line):
     from multivolumes_tpu_torch.ops import lightsweep as light_ops
     from multivolumes_tpu_torch.ops import sweep as sweep_ops
     from multivolumes_tpu_torch.ops import taa as taa_ops
+    from multivolumes_tpu_torch.render import lightsweep as light_lib
     from multivolumes_tpu_torch.render import mesh as mesh_lib
 
     cfg, frames = bench.bench_config(True)
@@ -2618,6 +2840,8 @@ def phase_bench(dev, mesh_path, smi_line):
               (composite_ops, "tile_composite_plain"),
               (light_ops, "light_self_scan_plain"),
               (light_ops, "light_advect_mul_plain"),
+              (light_lib, "prologue_plain"), (light_lib, "occlusion_entry"),
+              (light_lib, "_shade_light_fields"),
               (taa_ops, "taa_resolve_plain"))
     for path in (None, mesh_path):
         has_mesh = path is not None

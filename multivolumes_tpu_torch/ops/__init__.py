@@ -22,7 +22,9 @@ LAUNCHES = {"sweep": 0, "sweep_prologue": 0, "composite": 0,
             "composite_depth": 0, "composite_band": 0,
             "composite_depth_band": 0,
             "light_self_scan": 0, "light_self_scan_sm": 0,
-            "light_advect_mul": 0, "taa": 0, "taa_band": 0,
+            "light_advect_mul": 0, "light_prologue": 0,
+            "light_occlusion": 0, "light_epilogue": 0, "taa": 0,
+            "taa_band": 0,
             "raster_bin_eval": 0, "mesh_shade": 0, "raster": 0}
 
 IMPLS = (None, "kernel", "plain")

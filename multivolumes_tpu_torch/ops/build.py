@@ -51,6 +51,9 @@ SIGNATURES = {
     "mv_light_advect_mul": [_P, _P, _P, _P, _P, _I, _I, _P],
     "mv_light_scan_floor": [_I, _I, _I, _I, _P],
     "mv_light_scan_info": [_I, _I, _I, _P],
+    "mv_light_prologue": [_P] * 12 + [_I] * 6 + [_F] * 5 + [_P],
+    "mv_light_occlusion": [_P] * 5 + [_I] * 3 + [_P],
+    "mv_light_epilogue": [_P] * 14 + [_I] * 5 + [_P],
     "mv_taa_resolve": [_P, _P, _P, _P, _P, _I, _I, _P],
     "mv_taa_resolve_band": [_P, _P, _P, _P, _I, _I, _P],
     "mv_raster_bin_eval": [_P, _P, _P, _P, _P, _I, _I, _I, _P],

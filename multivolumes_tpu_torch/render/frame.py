@@ -163,20 +163,16 @@ def _render_frame_local(state: SceneState, camera: Camera,
         axis = (config.light_axis if config.light_axis is not None
                 else timing.host_read("light.axis", lambda: (
                     lightsweep.light_axis(state.light_pos))))
-        with timing.span("light.update"):
-            maps_c, light_sout = lightsweep.ray_march_light_sweep_update(
-                state.rho_light, state.ao_static, state.grad_dir,
-                state.vol_tex_ids, per_object, state.light_pos,
-                state.light_color, state.ambient, state.sh_coeffs,
-                config.max_light_samples, axis,
-                has_light_probe=config.has_light_probe, sub_ids=ids,
-                sout_cache=state.light_sout, impl=impl,
-                shadow_map=mesh_out.shadow if has_mesh else None,
-                shadow_vp=mesh_out.shadow_vp if has_mesh else None)
-        with timing.span("light.store"):
-            state.light_maps[ids] = maps_c.to(state.light_maps.dtype)
-            state.light_sweep[ids] = to_light_sweep(
-                maps_c, state.light_sweep.dtype)
+        _maps, light_sout = lightsweep.ray_march_light_sweep_update(
+            state.rho_light, state.ao_static, state.grad_dir,
+            state.vol_tex_ids, per_object, state.light_pos,
+            state.light_color, state.ambient, state.sh_coeffs,
+            config.max_light_samples, axis,
+            has_light_probe=config.has_light_probe, sub_ids=ids,
+            sout_cache=state.light_sout, impl=impl,
+            shadow_map=mesh_out.shadow if has_mesh else None,
+            shadow_vp=mesh_out.shadow_vp if has_mesh else None,
+            store=(state.light_maps, state.light_sweep, ids))
     else:
         # reference semantics: the gather march of one volume a frame;
         # its row of the sweep's stack follows
@@ -638,11 +634,10 @@ def _sweep_light_sharded(config, mesh, rep, hosted, by_d, tex_ids,
             sout_cache=sout_all[dev] if shard_light else st.light_sout,
             impl=impl,
             shadow_map=None if m_out is None else m_out.shadow,
-            shadow_vp=None if m_out is None else m_out.shadow_vp)
+            shadow_vp=None if m_out is None else m_out.shadow_vp,
+            store=None if shard_light else (st.light_maps, st.light_sweep,
+                                            ids))
         if not shard_light:
-            st.light_maps[ids] = maps_c.to(st.light_maps.dtype)
-            st.light_sweep[ids] = to_light_sweep(maps_c,
-                                                 st.light_sweep.dtype)
             continue
         for d, loc in hosted[dev].items():
             own = [i for i, v in enumerate(ids_host) if v // nl == d]

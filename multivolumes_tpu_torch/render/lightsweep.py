@@ -10,17 +10,32 @@ orthographic, so a ray's shadow-map texel is constant along it; a direct
 compared per slice inside B3's shadow-map variant. See the JAX module for
 the method and its documented deviations from the reference's per-voxel
 light march.
+
+On CUDA tensors a cohort update (`ray_march_light_sweep_update`) is five
+launches: B10's prologue (`ops/lightsweep_prep.py:light_prologue`: the
+shear geometry, B3's operands, the shadow entry), B3 or B3' (the self
+scan), B10's occlusion chain (`light_occlusion`: t_ins and the footprint
+cache), B4 (the advect-multiply) and B11 (`light_epilogue`: the shade and
+the stores of the light-map rows). The functions below are their plain
+version: `prologue_plain` and `shear_geometry` (B10a), `occlusion_entry`
+(B10b), `orient_back` with `_shade_light_fields` and the stores (B11);
+CPU tensors and `impl="plain"` take it.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
+from multivolumes_tpu_torch import ops
 from multivolumes_tpu_torch.config import SharedConsts
 from multivolumes_tpu_torch.core import sh as sh_lib
 from multivolumes_tpu_torch.ops import lightsweep as light_ops
+from multivolumes_tpu_torch.ops import lightsweep_prep as prep_ops
 from multivolumes_tpu_torch.ops.trilinear import indexed_trilinear_soa
 from multivolumes_tpu_torch.render.perframe import PerObject
+from multivolumes_tpu_torch.utils import timing
 
 ABSORPTION = SharedConsts.ABSORPTION
 ZERO_THRESHOLD = SharedConsts.ZERO_THRESHOLD
@@ -61,33 +76,37 @@ def densities_at_light_grid(volumes, l: int):
     return torch.einsum("cw,sabw->sabc", axis_mat(w), out)
 
 
-def light_transmittance(
-    rho_light,        # (C, L, L, L) density at the refreshed volumes' grids
-    per_object: PerObject,
-    light_dir_world,  # (3,) unit, pointing TOWARD the light
-    step_scale: float,
-    axis: int,        # static sweep axis (see `light_axis`)
-    sub_ids=None,     # (C,) volume indices refreshed (None = all N)
-    sout_cache=None,  # (N, L, L) cached outgoing lateral transmittance
-    impl: str | None = None,
-    shadow_map=None,  # (Sm, Sm) the mesh's light-view clip depth, or None
-    shadow_vp=None,   # (4, 4) its view-proj
-    shadow_bias: float = 0.0027,
-):
-    """Per-volume transmittance fields toward the light with inter-volume
-    occlusion chained through a shared lateral map -> ((C, L, L, L),
-    (N, L, L) outgoing footprints). `sout_cache`, when given, is updated
-    in place at `sub_ids` and returned. With `shadow_map`, each voxel is
-    also lit only in front of the mesh (a soft compare one slice deep)."""
-    n = per_object.world.shape[0]
-    c, l = rho_light.shape[0], rho_light.shape[1]
-    dev = rho_light.device
-    g = 2 * l  # global lateral occlusion map resolution
-    sub = (sub_ids if sub_ids is not None
-           else torch.arange(n, device=dev))
-    assert sub_ids is not None or c == n, \
-        "full refresh needs rho_light for every volume"
+class ShearGeometry(NamedTuple):
+    """`light_transmittance`'s per-volume geometry, all (N,) unless said:
+    the light order, the orientation flag, the shifts per slice and the
+    opacity correction, the entry plane (w_in, sgn), the global lateral
+    bounds (0-dim) and the entry / exit resample of each volume onto the
+    global (G, G) map."""
+    order: torch.Tensor
+    flip: torch.Tensor
+    du: torch.Tensor
+    dv: torch.Tensor
+    f_corr: torch.Tensor
+    scales: torch.Tensor
+    sgn: torch.Tensor
+    w_in: torch.Tensor
+    lo_u: torch.Tensor
+    lo_v: torch.Tensor
+    span_u: torch.Tensor
+    span_v: torch.Tensor
+    su: torch.Tensor
+    sv: torch.Tensor
+    ou: torch.Tensor
+    ov: torch.Tensor
+    ou_o: torch.Tensor
+    ov_o: torch.Tensor
 
+
+def shear_geometry(per_object: PerObject, light_dir_world, step_scale: float,
+                   axis: int, l: int) -> ShearGeometry:
+    """The shear geometry of every volume for the sweep along `axis` with
+    an L-texel light grid (the plain version of B10a's geometry)."""
+    g = 2 * l  # global lateral occlusion map resolution
     # local light direction (uniform-scale, unrotated worlds)
     wi = per_object.world_i
     ld = light_dir_world
@@ -103,25 +122,20 @@ def light_transmittance(
             + centers[:, 2] * ld[2])
     order = torch.argsort(-proj, stable=True)  # closest to the light first
 
-    # orient: sweep axis leading as dim 1, lateral (v, u) = dims 2, 3
+    # lateral (v, u) and sweep (w) components
     if axis == 0:     # sweep x; lateral (v=y, u=z)
-        rho_a = rho_light.permute(0, 3, 2, 1)
         lu, lv, lw = lz, ly, lx
         cu, cv, cw_axis = centers[:, 2], centers[:, 1], centers[:, 0]
     elif axis == 1:   # sweep y; lateral (v=z, u=x)
-        rho_a = rho_light.permute(0, 2, 1, 3)
         lu, lv, lw = lx, lz, ly
         cu, cv, cw_axis = centers[:, 0], centers[:, 2], centers[:, 1]
     else:             # sweep z; lateral (v=y, u=x)
-        rho_a = rho_light
         lu, lv, lw = lx, ly, lz
         cu, cv, cw_axis = centers[:, 0], centers[:, 1], centers[:, 2]
 
     # propagation direction d = -light_dir; orient grids so d_w > 0
     dwc = -lw
-    flip_s = (dwc < 0.0)[sub]
-    rho_o = torch.where(flip_s[:, None, None, None],
-                        torch.flip(rho_a, dims=(1,)), rho_a).contiguous()
+    flip = dwc < 0.0
     dw_abs = torch.clamp(dwc.abs(), min=1e-6)
     du = (-lu) / dw_abs   # voxels of lateral motion per slice
     dv = (-lv) / dw_abs
@@ -158,42 +172,34 @@ def light_transmittance(
     ou = ((cu_ref_in - scales - lo_u) / span_u) * g - 0.5 + 0.5 * su
     sv = (2.0 * scales / l) * (g / span_v)
     ov = ((cv_ref_in - scales - lo_v) / span_v) * g - 0.5 + 0.5 * sv
-    mu_in = _resample_matrix(l, g, su[sub], ou[sub], dev)   # (C, L, G)
-    mv_in = _resample_matrix(l, g, sv[sub], ov[sub], dev)
-
     ou_o = ((cu_ref_out - scales - lo_u) / span_u) * g - 0.5 + 0.5 * su
     ov_o = ((cv_ref_out - scales - lo_v) / span_v) * g - 0.5 + 0.5 * sv
+    return ShearGeometry(order, flip, du, dv, f_corr, scales, sgn, w_in,
+                         lo_u, lo_v, span_u, span_v, su, sv, ou, ov, ou_o,
+                         ov_o)
+
+
+def occlusion_entry(geo: ShearGeometry, s_out_all, sub, mv_in, mu_in):
+    """The global-map chain in light order (the plain version of B10b):
+    each cohort volume's incoming occlusion on its entry plane, the
+    product of the occlusion factors of every volume ahead of it, from
+    the outgoing footprints s_out_all (N, L, L) -> t_ins (C, L, L)."""
+    n, l = s_out_all.shape[0], s_out_all.shape[1]
+    g = 2 * l
+    dev = s_out_all.device
     gu_rows = torch.arange(g, dtype=torch.float32, device=dev)[:, None]
     gu_cols = torch.arange(l, dtype=torch.float32, device=dev)[None, :]
-    wu_all = torch.clamp(1.0 - ((gu_rows - ou_o[:, None, None])
-                                / su[:, None, None] - gu_cols).abs(), min=0.0)
-    wv_all = torch.clamp(1.0 - ((gu_rows - ov_o[:, None, None])
-                                / sv[:, None, None] - gu_cols).abs(), min=0.0)
-
-    sm_args = {}
-    if shadow_map is not None:
-        sm_args = _shadow_entry(
-            shadow_map, shadow_vp, shadow_bias, ld, axis, g, lo_u, lo_v,
-            span_u, span_v, mv_in, mu_in, (w_in, sgn, scales),
-            sub, l)
-
-    # self sweep (B3; its shadow-map variant with a mesh): volume-only
-    # transmittance per slice + footprint
-    here, s_out_c = light_ops.light_self_scan(
-        rho_o, du[sub], dv[sub], f_corr[sub], impl=impl, **sm_args)
-
-    if sout_cache is not None:
-        sout_cache[sub] = s_out_c
-        s_out_all = sout_cache
-    else:
-        s_out_all = s_out_c
-
-    # global-map chain in light order: each cohort volume needs the
-    # product of the occlusion factors of every volume ahead of it
+    wu_all = torch.clamp(1.0 - ((gu_rows - geo.ou_o[:, None, None])
+                                / geo.su[:, None, None] - gu_cols).abs(),
+                         min=0.0)
+    wv_all = torch.clamp(1.0 - ((gu_rows - geo.ov_o[:, None, None])
+                                / geo.sv[:, None, None] - gu_cols).abs(),
+                         min=0.0)
     o_big = torch.einsum("ngl,nlk,nhk->ngh", wv_all, s_out_all, wu_all)
     cover = torch.clamp(wv_all.sum(2)[:, :, None] * wu_all.sum(2)[:, None, :],
                         0.0, 1.0)
     fac = o_big + (1.0 - cover)
+    order = geo.order
     ranks = torch.argsort(order, stable=True)  # volume -> light rank
     if sub.shape[0] * 4 <= n:
         # small cohort: one masked product per cohort volume
@@ -204,18 +210,104 @@ def light_transmittance(
         cum = torch.cumprod(fac[order], dim=0)
         g_excl = torch.cat([torch.ones_like(cum[:1]), cum[:-1]], 0)
         g_in = g_excl[ranks[sub]]
-    t_ins = torch.einsum("cvg,cgh,cuh->cvu", mv_in, g_in, mu_in)
+    return torch.einsum("cvg,cgh,cuh->cvu", mv_in, g_in, mu_in)
+
+
+def prologue_plain(rho_light, per_object: PerObject, light_dir_world,
+                   step_scale: float, axis: int, sub, shadow_map=None,
+                   shadow_vp=None, shadow_bias: float = 0.0027):
+    """The plain version of B10a: the shear geometry, the cohort's density
+    oriented sweep-major (rho_light (C, L, L, L) of the cohort `sub`),
+    its entry resample matrices and the shadow operands of B3' -> (geo, rho_o,
+    mv_in (C, L, G), mu_in (C, L, G), sm_args: {} or sm_vol, z_entry,
+    dz_slice, soft)."""
+    l = rho_light.shape[1]
+    dev = rho_light.device
+    g = 2 * l  # global lateral occlusion map resolution
+    geo = shear_geometry(per_object, light_dir_world, step_scale, axis, l)
+
+    # orient: sweep axis leading as dim 1, lateral (v, u) = dims 2, 3
+    if axis == 0:
+        rho_a = rho_light.permute(0, 3, 2, 1)
+    elif axis == 1:
+        rho_a = rho_light.permute(0, 2, 1, 3)
+    else:
+        rho_a = rho_light
+    flip_s = geo.flip[sub]
+    rho_o = torch.where(flip_s[:, None, None, None],
+                        torch.flip(rho_a, dims=(1,)), rho_a).contiguous()
+    mu_in = _resample_matrix(l, g, geo.su[sub], geo.ou[sub], dev)  # (C, L, G)
+    mv_in = _resample_matrix(l, g, geo.sv[sub], geo.ov[sub], dev)
+
+    sm_args = {}
+    if shadow_map is not None:
+        sm_args = _shadow_entry(
+            shadow_map, shadow_vp, shadow_bias, light_dir_world, axis, g,
+            geo.lo_u, geo.lo_v, geo.span_u, geo.span_v, mv_in, mu_in,
+            (geo.w_in, geo.sgn, geo.scales), sub, l)
+    return geo, rho_o, mv_in, mu_in, sm_args
+
+
+def light_transmittance(
+    rho_light,        # (C, L, L, L) density at the refreshed volumes' grids
+    per_object: PerObject,
+    light_dir_world,  # (3,) unit, pointing TOWARD the light
+    step_scale: float,
+    axis: int,        # static sweep axis (see `light_axis`)
+    sub_ids=None,     # (C,) volume indices refreshed (None = all N)
+    sout_cache=None,  # (N, L, L) cached outgoing lateral transmittance
+    impl: str | None = None,
+    shadow_map=None,  # (Sm, Sm) the mesh's light-view clip depth, or None
+    shadow_vp=None,   # (4, 4) its view-proj
+    shadow_bias: float = 0.0027,
+):
+    """Per-volume transmittance fields toward the light with inter-volume
+    occlusion chained through a shared lateral map -> ((C, L, L, L),
+    (N, L, L) outgoing footprints). `sout_cache`, when given, is updated
+    in place at `sub_ids` and returned. With `shadow_map`, each voxel is
+    also lit only in front of the mesh (a soft compare one slice deep).
+    The plain version of B10 / B3 / B4 (B3 and B4 launch on CUDA tensors
+    unless `impl="plain"`)."""
+    n = per_object.world.shape[0]
+    c = rho_light.shape[0]
+    sub = (sub_ids if sub_ids is not None
+           else torch.arange(n, device=rho_light.device))
+    assert sub_ids is not None or c == n, \
+        "full refresh needs rho_light for every volume"
+    geo, rho_o, mv_in, mu_in, sm_args = prologue_plain(
+        rho_light, per_object, light_dir_world, step_scale, axis, sub,
+        shadow_map, shadow_vp, shadow_bias)
+    flip_s = geo.flip[sub]
+
+    # self sweep (B3; its shadow-map variant with a mesh): volume-only
+    # transmittance per slice + footprint
+    here, s_out_c = light_ops.light_self_scan(
+        rho_o, geo.du[sub], geo.dv[sub], geo.f_corr[sub], impl=impl,
+        **sm_args)
+
+    if sout_cache is not None:
+        sout_cache[sub] = s_out_c
+        s_out_all = sout_cache
+    else:
+        s_out_all = s_out_c
+    t_ins = occlusion_entry(geo, s_out_all, sub, mv_in, mu_in)
 
     # advect the incoming occlusion through the volumes (B4)
-    t_fields = light_ops.light_advect_mul(here, t_ins, du[sub], dv[sub],
-                                          impl=impl)
+    t_fields = light_ops.light_advect_mul(here, t_ins, geo.du[sub],
+                                          geo.dv[sub], impl=impl)
+    return orient_back(t_fields, flip_s, axis), s_out_all
+
+
+def orient_back(t_fields, flip_s, axis: int):
+    """Sweep-major fields (C, L, L, L) back to the volumes' (z, y, x)
+    layout: the flip of the flagged rows, then the permute of `axis`."""
     t_fields = torch.where(flip_s[:, None, None, None],
                            torch.flip(t_fields, dims=(1,)), t_fields)
     if axis == 0:
         t_fields = t_fields.permute(0, 3, 2, 1)
     elif axis == 1:
         t_fields = t_fields.permute(0, 2, 1, 3)
-    return t_fields, s_out_all
+    return t_fields
 
 
 def _shadow_entry(shadow_map, shadow_vp, shadow_bias, light_dir_world,
@@ -345,23 +437,69 @@ def ray_march_light_sweep_update(
     per_object: PerObject, light_pos, light_color, ambient, sh_coeffs,
     max_light_samples: int, axis: int, has_light_probe: bool = True,
     sub_ids=None, sout_cache=None, impl: str | None = None,
-    shadow_map=None, shadow_vp=None,
+    shadow_map=None, shadow_vp=None, store=None,
 ):
     """Refresh the light maps of a volume cohort (all volumes when
     `sub_ids` is None) -> (maps (C, 3, L, L, L), sout (N, L, L)); with
-    the mesh's `shadow_map` and `shadow_vp` the maps take its shadow."""
+    the mesh's `shadow_map` and `shadow_vp` the maps take its shadow.
+    With `store` = (light_maps (N, 3, L, L, L), light_sweep (N, L, L, L,
+    4), rows (C,)) the maps are written into those rows in place and None
+    is returned for them. On CUDA tensors (unless `impl="plain"`) it runs
+    B10 / B3 / B4 / B11 (`ops/lightsweep_prep.py`), else the plain
+    version. Steps `light.update` (the transmittance) and `light.store`
+    (the shade and the stores)."""
     step_scale = MAX_DIST / float(max_light_samples)
-    tex_sub = vol_tex_ids if sub_ids is None else vol_tex_ids[sub_ids]
-    rho = rho_light_src[tex_sub]
     light_dir = light_pos[:3] / torch.linalg.norm(light_pos[:3])
-    shadow, sout = light_transmittance(
-        rho, per_object, light_dir, step_scale, axis,
-        sub_ids=sub_ids, sout_cache=sout_cache, impl=impl,
-        shadow_map=shadow_map, shadow_vp=shadow_vp)
-    maps = _shade_light_fields(shadow, rho, tex_sub, ao_src, grad_dir_src,
-                               sh_coeffs, ambient, light_color,
-                               has_light_probe)
-    return maps, sout
+    if ops.use_kernel(impl, rho_light_src):
+        return _update_kernels(
+            rho_light_src, ao_src, grad_dir_src, vol_tex_ids, per_object,
+            light_dir, light_color, ambient, sh_coeffs, step_scale, axis,
+            has_light_probe, sub_ids, sout_cache, impl, shadow_map,
+            shadow_vp, store)
+    tex_sub = vol_tex_ids if sub_ids is None else vol_tex_ids[sub_ids]
+    with timing.span("light.update"):
+        rho = rho_light_src[tex_sub]
+        shadow, sout = light_transmittance(
+            rho, per_object, light_dir, step_scale, axis,
+            sub_ids=sub_ids, sout_cache=sout_cache, impl=impl,
+            shadow_map=shadow_map, shadow_vp=shadow_vp)
+    with timing.span("light.store"):
+        maps = _shade_light_fields(shadow, rho, tex_sub, ao_src,
+                                   grad_dir_src, sh_coeffs, ambient,
+                                   light_color, has_light_probe)
+        if store is None:
+            return maps, sout
+        from multivolumes_tpu_torch.scene.state import to_light_sweep
+
+        light_maps, light_sweep, rows = store
+        light_maps[rows] = maps.to(light_maps.dtype)
+        light_sweep[rows] = to_light_sweep(maps, light_sweep.dtype)
+    return None, sout
+
+
+def _update_kernels(rho_light_src, ao_src, grad_dir_src, vol_tex_ids,
+                    per_object, light_dir, light_color, ambient, sh_coeffs,
+                    step_scale, axis, has_light_probe, sub_ids, sout_cache,
+                    impl, shadow_map, shadow_vp, store):
+    """`ray_march_light_sweep_update` on the card: B10a, B3 / B3', B10b,
+    B4, B11 (five launches)."""
+    n = vol_tex_ids.shape[0]
+    sub = (sub_ids if sub_ids is not None
+           else torch.arange(n, device=vol_tex_ids.device))
+    with timing.span("light.update"):
+        prep = prep_ops.light_prologue(
+            rho_light_src, vol_tex_ids, sub, per_object, light_dir,
+            step_scale, axis, shadow_map=shadow_map, shadow_vp=shadow_vp)
+        here, s_out_c = light_ops.light_self_scan(
+            prep.rho_o, prep.du, prep.dv, prep.f_corr, impl=impl, **prep.sm)
+        t_ins = prep_ops.light_occlusion(prep, s_out_c, sout_cache)
+        fields = light_ops.light_advect_mul(here, t_ins, prep.du, prep.dv,
+                                            impl=impl)
+    with timing.span("light.store"):
+        maps = prep_ops.light_epilogue(
+            fields, prep, rho_light_src, ao_src, grad_dir_src, vol_tex_ids,
+            sh_coeffs, ambient, light_color, has_light_probe, store=store)
+    return maps, (s_out_c if sout_cache is None else sout_cache)
 
 
 def ray_march_light_sweep(
