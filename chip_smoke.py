@@ -8,6 +8,7 @@
     python3 chip_smoke.py --mesh-shade   # phases 1, 2 and B8's rows alone
     python3 chip_smoke.py --raster   # phases 1, 2 and B9's rows alone
     python3 chip_smoke.py --light    # phases 1, 2 and B10's / B11's rows
+    python3 chip_smoke.py --partition   # phases 1, 2 and B12's / B13's rows
 
 Phases (any failure exits non-zero, and no result line is printed):
   1. the card: `nvidia-smi` name and power limit, torch and CUDA versions;
@@ -41,7 +42,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      near preset), colour, velocity and validity within 1e-4 + 1e-4
      relative, with the kernels one call launches; B9, the mesh's
      raster, on the raster of the same two frames, depth and triangle
-     ids equal), with
+     ids equal; B12 and B13, the LOD sweep's partition and bucket
+     stores, on the demo frame with the torus, equal), with
      the parity tolerance of the kernel's card test; times of both from
      CUDA events after warm-up, each kernel's bound (below), for B1, B2,
      B2', the B2 band, B4, B5, B5' and B6 the device time of the kernels
@@ -221,13 +223,20 @@ KERNELS = {
                        "multivolumes_tpu/render/lightsweep.py:100"),
     "light_epilogue": (_CSRC + "lightsweep_prep.cu",
                        "multivolumes_tpu/render/lightsweep.py:527"),
+    # B12 and B13 replace no Pallas kernel: the JAX LOD sweep's glue in XLA
+    "lod_partition": (_CSRC + "lod_partition.cu",
+                      "multivolumes_tpu/render/sweep.py:637"),
+    "lod_store": (_CSRC + "lod_partition.cu",
+                  "multivolumes_tpu/render/sweep.py:673"),
 }
 # the light cohort update's kernels around B3 / B4 (B10, B11)
 LIGHT = ("light_prologue", "light_occlusion", "light_epilogue")
+# the LOD sweep's partition and bucket stores (B12, B13)
+LOD = ("lod_partition", "lod_store")
 # the kernels of the frame without and with the opaque mesh
-NO_MESH = ("sweep", "sweep_prologue", "composite", "light_self_scan",
+NO_MESH = ("sweep", "sweep_prologue", *LOD, "composite", "light_self_scan",
            "light_advect_mul", *LIGHT, "taa")
-WITH_MESH = ("sweep", "sweep_prologue", "composite_depth",
+WITH_MESH = ("sweep", "sweep_prologue", *LOD, "composite_depth",
              "light_self_scan_sm", "light_advect_mul", *LIGHT, "taa",
              "mesh_shade", "raster")
 # summary row name -> (launch-count key, the path whose counts it reports)
@@ -249,7 +258,9 @@ ROW_KERNEL = {"sweep@unbucketed": ("sweep", "unbucketed"),
               "raster@1280x800-far": ("raster", "raster_800p"),
               "raster@2560x1440-near": ("raster", "raster_1440p"),
               "light_prologue": ("light_prologue", "light"),
-              "light_epilogue": ("light_epilogue", "light")}
+              "light_epilogue": ("light_epilogue", "light"),
+              "lod_partition": ("lod_partition", "partition"),
+              "lod_store": ("lod_store", "partition")}
 # the kernels of the un-bucketed frame with the warp composite, and of the
 # frame in full reference semantics (the gather passes have none but B5)
 UNBUCKETED = ("sweep", "light_self_scan", "light_advect_mul", *LIGHT, "taa")
@@ -270,7 +281,7 @@ SETTINGS_SHARDED = {
                         False, ("sweep", "light_self_scan",
                                 "light_advect_mul", *LIGHT, "taa_band")),
     "point light": (dict(point_light=True), False,
-                    ("sweep", "sweep_prologue", "composite_band",
+                    ("sweep", "sweep_prologue", *LOD, "composite_band",
                      "taa_band")),
     "reference": (dict(march_mode="reference", light_mode="reference",
                        composite_mode="gather"), False, ("taa_band",)),
@@ -728,9 +739,11 @@ def main() -> int:
                                profile_all=True)
         log(smi_line)
         return 0
-    if sys.argv[1:] in (["--mesh-shade"], ["--raster"], ["--light"]):
+    if sys.argv[1:] in (["--mesh-shade"], ["--raster"], ["--light"],
+                        ["--partition"]):
         phase = {"--mesh-shade": phase_mesh_shade, "--raster": phase_raster,
-                 "--light": phase_light}[sys.argv[1]]
+                 "--light": phase_light,
+                 "--partition": phase_partition}[sys.argv[1]]
         rows, launches = phase(dev, torus_mesh(MESH_TRIS))
         for r in rows:
             key, path = row_kernel(r["name"])
@@ -753,7 +766,8 @@ def main() -> int:
     results += mesh_results
     launches["mesh"] = phase_demo(mesh_engine, cfg, dev, WITH_MESH,
                                   frames=4, closeup=True)
-    for phase in (phase_mesh_shade, phase_raster, phase_light):
+    for phase in (phase_mesh_shade, phase_raster, phase_light,
+                  phase_partition):
         phase_results, phase_launches = phase(dev, mesh_path)
         results += phase_results
         launches.update(phase_launches)
@@ -1489,6 +1503,142 @@ def phase_light(dev, mesh_path):
         "light_prologue", "light_occlusion", "light_epilogue")),
         f"the mesh frame's light launches {launches['light']}")
     del engine, probe
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+def bound_partition(args, kwargs):
+    """B12: bytes, the cull rows, source ids, matrices, eye and basis read
+    once and its 196 bytes a volume of outputs written once; operations,
+    about 300 f32 operations a volume (the eye, its local basis, six
+    faces' homography rows and their flags), the rank's compares not
+    counted."""
+    cull, po, eye, tex = args[:4]
+    n = tex.shape[0]
+    nbytes = (_nbytes(*cull, tex, po.world_i, po.world_view_proj, eye)
+              + 36 + 196 * n)
+    return nbytes, 300.0 * n
+
+
+def bound_store(args, kwargs):
+    """B13: bytes, B1's f32 output of the bucket read once, its run mask
+    and flags, the rows written once in the colour's dtype; operations,
+    two products a texel and channel."""
+    scatter, run, swap, color = args[:4]
+    return (_nbytes(scatter, run, swap) + scatter.numel()
+            * color.element_size(), 2.0 * scatter.numel())
+
+
+def phase_partition(dev, mesh_path):
+    """B12 and B13 against their plain versions on the demo's frame (N =
+    64, 1280x800, the orbit's first pose, the tile composite's contract):
+    the `lod_partition@N64` row (every output equal) and the
+    `lod_store@S<size>` rows, one a LOD bucket on B1's output of that
+    bucket (the colour stack equal), each with its kernel's device time;
+    then the LOD sweep's host dispatch and device time through B12 / B13
+    against their plain versions around the same B7 / B1, without and
+    with the torus's depth map, and the frame's launches -> (rows,
+    {"partition": launches})."""
+    import torch
+
+    from multivolumes_tpu_torch import ops
+    from multivolumes_tpu_torch.config import RenderConfig
+    from multivolumes_tpu_torch.core import camera as cam_lib
+    from multivolumes_tpu_torch.engine import MultiRayCaster
+    from multivolumes_tpu_torch.ops import lod_partition as lod_ops
+    from multivolumes_tpu_torch.render import frame as frame_lib
+    from multivolumes_tpu_torch.render import sweep as sweep_lib
+
+    cfg = RenderConfig(**DEMO)
+    engine = MultiRayCaster(cfg, device=dev)
+    engine.set_mesh(mesh_path)
+    cam = cam_lib.orbit_camera(0.0, cfg.aspect_ratio, device=dev)
+    probe = clone_state(engine.state)
+    ops.reset_launches()
+    with capture([(sweep_lib, "ray_march_view_sweep_lod"),
+                  (sweep_lib, "sweep_march")]) as calls:
+        frame_lib.render_frame(probe, cam, engine.config)
+    torch.cuda.synchronize()
+    launches = {"partition": dict(ops.LAUNCHES)}
+    n_buckets = len(calls["sweep_march*"])
+    log(f"[partition] the mesh frame launched {launches['partition']}")
+    check(launches["partition"]["lod_partition"] == 1
+          and launches["partition"]["lod_store"] == n_buckets == 3,
+          f"the frame's partition launches {launches['partition']}")
+    a, k = calls["ray_march_view_sweep_lod"]
+    (_vols, tex, _light, po, cull, eye, s, basis) = a[:8]
+    buckets = sweep_lib.lod_buckets(tex.shape[0], s, k["bucket_caps"])
+    rows = [compare_kernel(
+        "lod_partition@N64", lod_ops.partition,
+        (cull, po, eye, tex, s, buckets, basis), {}, None, bound_partition,
+        reps=(50, 5), device_kernel="lod_partition_kernel")]
+
+    part = lod_ops.partition(cull, po, eye, tex, s, buckets, basis)
+    color = torch.zeros((tex.shape[0], 6, 4, s, s),
+                        dtype=engine.state.volumes_sweep.dtype, device=dev)
+    for (b0, count, size_b, _mip_b), (ba, _bk) in zip(
+            buckets, calls["sweep_march*"]):
+        name = f"lod_store@S{size_b}"
+        scatter = sweep_lib.sweep_march(*ba, **dict(_bk))
+        sl = slice(b0, b0 + count)
+        store = (scatter, part.run[sl], part.swap[sl], color, sl)
+        got, want = color.clone(), color.clone()
+        lod_ops.bucket_store(scatter.clone(), *store[1:3], got, sl,
+                             impl="kernel")
+        lod_ops.bucket_store(scatter.clone(), *store[1:3], want, sl,
+                             impl="plain")
+        torch.cuda.synchronize()
+        differ = (got != want) & ~(got.isnan() & want.isnan())
+        check(not bool(differ.any()), f"{name}: {int(differ.sum())} "
+              f"elements differ from the plain version")
+        ms = cuda_ms(lambda: lod_ops.bucket_store(*store, impl="kernel"), 50)
+        plain_ms = cuda_ms(lambda: lod_ops.bucket_store(
+            scatter.clone(), *store[1:], impl="plain"), 5)
+        nbytes, flops = bound_store(store, {})
+        bound_ms = max(nbytes / MEM_RATE, flops / F32_RATE) * 1e3
+        row = {"name": name, "route": "cuda",
+               "source": KERNELS["lod_store"][0],
+               "replaces": KERNELS["lod_store"][1], "max_abs_err": 0.0,
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": "bytes", "library_ms": None,
+               "device_ms": device_ms(lambda: lod_ops.bucket_store(
+                   *store, impl="kernel"), "lod_store_kernel")}
+        log(f"[kernel] {name}: equal to plain; kernel {ms:.3f} ms (dev "
+            f"{row['device_ms']}), plain {plain_ms:.3f} ms (with the "
+            f"scatter's copy), bound {bound_ms:.4f} ms "
+            f"({nbytes / 1e6:.1f} MB)")
+        rows.append(row)
+
+    # the whole LOD sweep: host dispatch (no sync) and device time, B12 /
+    # B13 against their plain versions around the same B7 / B1
+    kernels = (lod_ops.partition, lod_ops.bucket_store)
+
+    def plain_glue():
+        lod_ops.partition = lambda *pa, **pk: kernels[0](
+            *pa, **dict(pk, impl="plain"))
+        lod_ops.bucket_store = lambda *pa, **pk: kernels[1](
+            *pa, **dict(pk, impl="plain"))
+
+    for tag, kw in (("", dict(k, depth_map=None)), ("-depth", k)):
+        for glue in ("plain", "B12/B13", "B12/B13", "plain"):
+            if glue == "plain":
+                plain_glue()
+            try:
+                host = []
+                for _ in range(21):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    sweep_lib.ray_march_view_sweep_lod(*a, **kw)
+                    host.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+                call_ms = cuda_ms(
+                    lambda: sweep_lib.ray_march_view_sweep_lod(*a, **kw), 20)
+            finally:
+                lod_ops.partition, lod_ops.bucket_store = kernels
+            log(f"[partition] LOD sweep{tag} with the {glue} glue: host "
+                f"dispatch median {sorted(host)[10]:.3f} ms, call "
+                f"{call_ms:.3f} ms (events)")
+    del engine, probe, calls, a, color, part
     torch.cuda.empty_cache()
     return rows, launches
 
@@ -2666,6 +2816,7 @@ TIMING_ROUNDS = 9
 
 # the hand kernels of the frame by the pass that must launch them
 PASS_KERNELS = {"sweep_kernel": "sweep", "sweep_prologue_kernel": "sweep",
+                "lod_partition_kernel": "sweep", "lod_store_kernel": "sweep",
                 "tile_composite_kernel": "composite",
                 "mesh_tile_kernel": "composite", "self_scan_kernel": "light",
                 "taa_resolve_kernel": "taa", "mesh_planes_kernel": "mesh",
@@ -2784,30 +2935,35 @@ def phase_tools(cfg, dev, mesh_path):
 
 
 # the hand kernels one bench frame launches: profiler kernel name ->
-# launches, and the launch counts, without and with the opaque mesh (B1
-# and B7 once per LOD bucket; B3 and B4 are both `self_scan_kernel`; B8
+# launches, and the launch counts, without and with the opaque mesh (B1,
+# B7 and B13 once per LOD bucket, B12 once; B3 and B4 are both
+# `self_scan_kernel`; B8
 # once with the mesh, as its planes and its shade; B9 once with the mesh,
 # as its setup, emit and resolve)
 BENCH_FRAME = {
     False: ({"sweep_kernel": 3, "sweep_prologue_kernel": 3,
+             "lod_partition_kernel": 1, "lod_store_kernel": 3,
              "tile_composite_kernel": 1, "mesh_tile_kernel": 0,
              "self_scan_kernel": 2, "taa_resolve_kernel": 1,
              "mesh_planes_kernel": 0, "mesh_shade_kernel": 0,
              "raster_setup_kernel": 0, "raster_emit_kernel": 0,
              "raster_resolve_kernel": 0, "light_prologue_kernel": 1,
              "light_occlusion_kernel": 1, "light_epilogue_kernel": 1},
-            {"sweep": 3, "sweep_prologue": 3, "composite": 1,
+            {"sweep": 3, "sweep_prologue": 3, "lod_partition": 1,
+             "lod_store": 3, "composite": 1,
              "light_self_scan": 1, "light_advect_mul": 1,
              "light_prologue": 1, "light_occlusion": 1,
              "light_epilogue": 1, "taa": 1}),
     True: ({"sweep_kernel": 3, "sweep_prologue_kernel": 3,
+            "lod_partition_kernel": 1, "lod_store_kernel": 3,
             "tile_composite_kernel": 1, "mesh_tile_kernel": 1,
             "self_scan_kernel": 2, "taa_resolve_kernel": 1,
             "mesh_planes_kernel": 1, "mesh_shade_kernel": 1,
             "raster_setup_kernel": 1, "raster_emit_kernel": 1,
             "raster_resolve_kernel": 1, "light_prologue_kernel": 1,
             "light_occlusion_kernel": 1, "light_epilogue_kernel": 1},
-           {"sweep": 3, "sweep_prologue": 3, "composite_depth": 1,
+           {"sweep": 3, "sweep_prologue": 3, "lod_partition": 1,
+            "lod_store": 3, "composite_depth": 1,
             "light_self_scan_sm": 1, "light_advect_mul": 1,
             "light_prologue": 1, "light_occlusion": 1, "light_epilogue": 1,
             "taa": 1, "mesh_shade": 1, "raster": 1}),
@@ -2833,6 +2989,7 @@ def phase_bench(dev, mesh_path, smi_line):
     from multivolumes_tpu_torch.ops import taa as taa_ops
     from multivolumes_tpu_torch.render import lightsweep as light_lib
     from multivolumes_tpu_torch.render import mesh as mesh_lib
+    from multivolumes_tpu_torch.render import sweep as sweep_lib
 
     cfg, frames = bench.bench_config(True)
     plains = ((mesh_lib, "shade_plain"), (mesh_lib, "rasterize_plain"),
@@ -2842,6 +2999,8 @@ def phase_bench(dev, mesh_path, smi_line):
               (light_ops, "light_advect_mul_plain"),
               (light_lib, "prologue_plain"), (light_lib, "occlusion_entry"),
               (light_lib, "_shade_light_fields"),
+              (sweep_lib, "partition_plain"),
+              (sweep_lib, "bucket_store_plain"),
               (taa_ops, "taa_resolve_plain"))
     for path in (None, mesh_path):
         has_mesh = path is not None

@@ -25,7 +25,8 @@ LAUNCHES = {"sweep": 0, "sweep_prologue": 0, "composite": 0,
             "light_advect_mul": 0, "light_prologue": 0,
             "light_occlusion": 0, "light_epilogue": 0, "taa": 0,
             "taa_band": 0,
-            "raster_bin_eval": 0, "mesh_shade": 0, "raster": 0}
+            "raster_bin_eval": 0, "mesh_shade": 0, "raster": 0,
+            "lod_partition": 0, "lod_store": 0}
 
 IMPLS = (None, "kernel", "plain")
 

@@ -60,6 +60,8 @@ SIGNATURES = {
     "mv_mesh_shade": [_P] * 19 + [_I] * 18 + [_P],
     "mv_raster_setup": [_P] * 7 + [_I] * 5 + [_P],
     "mv_raster_draw": [_P] * 5 + [_I, _P, _P, _I, _P, _P] + [_I] * 7 + [_P],
+    "mv_lod_partition": [_P] * 23 + [_I] * 10 + [_P],
+    "mv_lod_store": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 

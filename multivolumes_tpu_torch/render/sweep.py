@@ -6,12 +6,15 @@ three output contracts, `ray_march_view_sweep`, the un-bucketed march of
 every volume at full resolution, and `ray_march_view_sweep_lod_sharded`
 and `ray_march_view_sweep_sharded`, the two split over the volume axis
 of a device mesh). The per-(volume, face) march itself is kernel B1
-(`ops/sweep.py`), and the prologue of each LOD bucket (its ray
-intervals, depth bound and cube depth) kernel B7 (`ops/sweep_prep.py`,
-whose plain version is `bucket_prologue_plain` here); this module does
-the per-frame geometry around them: face frames, LOD buckets, the sorted
-assembly and the Catmull-Smith pre-swap of each face for the tile
-composite. With a scene depth map
+(`ops/sweep.py`), the prologue of each LOD bucket (its ray intervals,
+depth bound and cube depth) kernel B7 (`ops/sweep_prep.py`, whose plain
+version is `bucket_prologue_plain` here), the frame's partition (face
+frames, LOD rank and mips, B1's operands in rank order, the
+Catmull-Smith flags of the tile composite) kernel B12 and each bucket's
+store (scale, run mask, rounding, the flags' pre-swap) kernel B13
+(`ops/lod_partition.py`, whose plain versions are `partition_plain` and
+`bucket_store_plain` here); this module lays out the buckets on the host
+and holds the plain versions. With a scene depth map
 (the opaque mesh), each ray also ends where the scene occludes it
 (`_occlusion_s_max`, the reference's `GetTMax` in the sweep's ray
 parameter, sampled per bucket at a quarter, half or full bucket
@@ -28,6 +31,7 @@ import torch
 
 from multivolumes_tpu_torch.config import SharedConsts
 from multivolumes_tpu_torch.core import math3d
+from multivolumes_tpu_torch.ops import lod_partition as lod_partition_ops
 from multivolumes_tpu_torch.ops import sweep_prep
 from multivolumes_tpu_torch.ops.sweep import (  # noqa: F401 (the JAX names)
     ABSORPTION, FACE_FLIPS, FACE_VARIANT, MAX_DIST, ZERO_THRESHOLD,
@@ -200,21 +204,21 @@ def bucket_occlusion(per_object: PerObject, eye_local, occl_depth, ids,
     return _occlusion_s_max(po_b, eye_b, occl_depth, size_b, n_eff_v)
 
 
-def lod_partition(cull: CullResult, n: int, cube_map_size: int,
-                  bucket_caps):
-    """Rank volumes for LOD bucketing -> (order, buckets).
-
-    Sort key: mip ascending, ties by projected edge length descending,
-    invisible volumes last; the sort is stable like `jnp.argsort`, so equal
-    keys keep volume order. buckets = [(start, count, size_b, mip_b), ...]
-    is a static layout."""
-    s = cube_map_size
+def lod_order(cull: CullResult):
+    """(N,) int64 LOD rank of the volumes. Sort key: mip ascending, ties
+    by projected edge length descending, invisible volumes last; the sort
+    is stable like `jnp.argsort`, so equal keys keep volume order."""
     edge = torch.clamp(cull.max_edge_px, 0.0, 65535.0).int()
     sort_key = torch.where(cull.visible,
                            cull.mip_level * (1 << 17) + (65536 - edge),
                            1 << 30)
-    order = torch.argsort(sort_key, stable=True)
+    return torch.argsort(sort_key, stable=True)
 
+
+def lod_buckets(n: int, cube_map_size: int, bucket_caps):
+    """The static bucket layout of n ranked volumes: [(start, count,
+    size_b, mip_b), ...], from the host's numbers alone."""
+    s = cube_map_size
     buckets = []
     start = 0
     mip = 0
@@ -231,7 +235,14 @@ def lod_partition(cull: CullResult, n: int, cube_map_size: int,
         s0, c0, size_b, mip_b = buckets[-1]
         buckets[-1] = (s0, c0 + (n - start), size_b, mip_b)
         start = n
-    return order, buckets
+    return buckets
+
+
+def lod_partition(cull: CullResult, n: int, cube_map_size: int,
+                  bucket_caps):
+    """Rank volumes for LOD bucketing -> (order, buckets): `lod_order`
+    and `lod_buckets`."""
+    return lod_order(cull), lod_buckets(n, cube_map_size, bucket_caps)
 
 
 class SortedSweep(NamedTuple):
@@ -251,6 +262,79 @@ def bucket_mips(cull: CullResult, ids, mip_b: int, max_mip: int):
     actual = torch.clamp(cull.mip_level[ids], 0, max_mip)
     scheme_off = (~cull.use_cube_map[ids]).int()
     return torch.clamp(actual + scheme_off, mip_b, max_mip).int()
+
+
+class Partition(NamedTuple):
+    """The LOD sweep's per-frame partition (kernel B12,
+    `ops/lod_partition.py`, or `partition_plain`). Rows j are the ranked
+    volumes order[j]; each bucket takes its slice of the sorted rows."""
+    order: torch.Tensor      # (N,) int64 row j = volume order[j]
+    mips: torch.Tensor       # (N,) int32 effective mip, volume order
+    n_eff: torch.Tensor      # (N,) f32 S >> mip, sorted rows
+    eye_local: torch.Tensor  # (N, 3) the eye in each volume's frame
+    eye_faces: torch.Tensor  # (N, 6, 3) its face frames, volume order
+    ids: torch.Tensor        # (N,) int32 order: B1's light rows
+    tex: torch.Tensor        # (N,) int32 source volumes, sorted rows
+    faces: torch.Tensor      # (N, 6, 3) eye_faces, sorted rows
+    smp: torch.Tensor        # (N,) int32 ray sample counts, sorted rows
+    run: torch.Tensor        # (N, 6) bool faces to march, sorted rows
+    swap: torch.Tensor       # (N, 6) bool Catmull-Smith flags, sorted
+                             # rows; None without a swap basis
+
+
+def partition_plain(cull: CullResult, per_object: PerObject, eye,
+                    vol_tex_ids, cube_map_size: int, buckets,
+                    swap_basis=None) -> Partition:
+    """Plain version of kernel B12: the eye in each volume's frame, the
+    LOD rank, each bucket's effective mips, B1's per-volume operands in
+    rank order and, with a swap basis, the Catmull-Smith flags of the
+    ranked rows (`warp.catmull_swap_flags`)."""
+    n = vol_tex_ids.shape[0]
+    s = cube_map_size
+    eye_local = math3d.transform_point3(eye, per_object.world_i)
+    eye_faces = eye_to_face_frames(eye_local)
+    order = lod_order(cull)
+    max_mip = max((s // 8).bit_length() - 1, 0)
+    mips = torch.zeros((n,), dtype=torch.int32, device=eye.device)
+    n_effs = []
+    for (b0, count, _size_b, mip_b) in buckets:
+        ids = order[b0:b0 + count]
+        eff_mip = bucket_mips(cull, ids, mip_b, max_mip)
+        mips[ids] = eff_mip
+        n_effs.append((s >> eff_mip).float())
+    n_eff = torch.cat(n_effs)
+    swap = None
+    if swap_basis is not None:
+        # the frame's one pick of the flags, over every sorted row at
+        # once: the tile prep takes them as given
+        po_sorted = per_object.take(order)
+        swap = catmull_swap_flags(
+            swap_basis, po_sorted.world_i, po_sorted.world_view_proj,
+            math3d.transform_point3(eye, po_sorted.world_i), n_eff)
+    run = cull.face_mask[order] & cull.visible[order][:, None]
+    return Partition(order, mips, n_eff, eye_local, eye_faces, order.int(),
+                     vol_tex_ids[order].int(), eye_faces[order],
+                     cull.smp_count[order], run, swap)
+
+
+def bucket_store_plain(scatter, run, swap, color, rows, pack: bool = False):
+    """Plain version of kernel B13: B1's (count, 6, 4, S_b, S_b) f32
+    output of one bucket, RGB scaled by 1 / (2 pi), masked by `run`
+    (count, 6), rounded to color's dtype (with `pack`, f16-pair packed:
+    `composite.pack_cube_f16`), transposed where `swap` (count, 6) is set,
+    stored into color[rows, :, :, :S_b, :S_b]. Scales `scatter` in
+    place."""
+    size_b = scatter.shape[-1]
+    scatter[:, :, :3] *= 1.0 / (2.0 * math.pi)
+    scatter = scatter * run[:, :, None, None, None]
+    if pack:
+        out_b = pack_cube_f16(scatter)
+    else:
+        out_b = scatter.to(color.dtype)
+    if swap is not None:
+        out_b = torch.where(swap[:, :, None, None, None],
+                            out_b.transpose(-1, -2), out_b)
+    color[rows, :, :, :size_b, :size_b] = out_b
 
 
 def bucket_ray_params(eye_faces, ids, size_b: int, n_eff_v, s_max=None):
@@ -294,13 +378,6 @@ def bucket_prologue_plain(per_object: PerObject, eye_local, eye_faces, ids,
     return bucket_ray_params(eye_faces, ids, size_b, n_eff_v, s_max)
 
 
-def bucket_march_args(cull: CullResult, eye_faces, ids):
-    """Kernel-B1 arguments of one bucket besides its ray operands: (eye
-    faces, smp_count, run mask)."""
-    run = cull.face_mask[ids] & cull.visible[ids][:, None]
-    return eye_faces[ids], cull.smp_count[ids], run
-
-
 def ray_march_view_sweep_lod(
     volumes_sweep,      # (N_src, D, H, W, 4) sweep dtype
     vol_tex_ids,        # (N,)
@@ -339,31 +416,11 @@ def ray_march_view_sweep_lod(
     n = vol_tex_ids.shape[0]
     s = cube_map_size
     dev = volumes_sweep.device
-    eye_local = math3d.transform_point3(eye, per_object.world_i)
-    eye_faces = eye_to_face_frames(eye_local)
     with timing.span("sweep.partition"):
-        order, buckets = lod_partition(cull, n, s, bucket_caps)
-        max_mip = max((s // 8).bit_length() - 1, 0)
-
-        mips = torch.zeros((n,), dtype=torch.int32, device=dev)
-        bucket_ids, n_effs = [], []
-        for (b0, count, _size_b, mip_b) in buckets:
-            ids = order[b0:b0 + count]
-            eff_mip = bucket_mips(cull, ids, mip_b, max_mip)
-            mips[ids] = eff_mip
-            bucket_ids.append(ids)
-            n_effs.append((s >> eff_mip).float())
-
-        swap = None
-        if swap_basis is not None:
-            # the frame's one pick of the flags, over every sorted row at
-            # once: the tile prep takes them as given
-            n_eff_sorted = torch.cat(n_effs)
-            po_sorted = per_object.take(order)
-            swap = catmull_swap_flags(
-                swap_basis, po_sorted.world_i, po_sorted.world_view_proj,
-                math3d.transform_point3(eye, po_sorted.world_i),
-                n_eff_sorted)
+        buckets = lod_buckets(n, s, bucket_caps)
+        part = lod_partition_ops.partition(
+            cull, per_object, eye, vol_tex_ids, s, buckets, swap_basis,
+            impl=impl)
 
     if pack:
         color = torch.zeros((n, 6, 2, s, s), dtype=torch.float32,
@@ -374,36 +431,33 @@ def ray_march_view_sweep_lod(
     cube_depth = None
     if depth_map is not None:
         cube_depth = torch.full((n, 6, s, s), SharedConsts.Z_FAR
-                                if swap is not None else 1.0,
+                                if swap_basis is not None else 1.0,
                                 dtype=torch.float32, device=dev)
-    for (b0, count, size_b, _mip_b), ids, n_eff_v in zip(
-            buckets, bucket_ids, n_effs):
+    for (b0, count, size_b, _mip_b) in buckets:
         with timing.span("sweep.bucket"):
-            rows = slice(b0, b0 + count) if sorted_output else ids
-            sw = None if swap is None else swap[b0:b0 + count]
+            sorted_rows = slice(b0, b0 + count)
+            ids = part.order[sorted_rows]
+            rows = sorted_rows if sorted_output else ids
+            sw = None if part.swap is None else part.swap[sorted_rows]
+            n_eff_v, run = part.n_eff[sorted_rows], part.run[sorted_rows]
             params = sweep_prep.sweep_prologue(
-                per_object, eye_local, eye_faces, ids, n_eff_v, size_b,
-                depth_map=depth_map, swap=sw, cube_depth=cube_depth,
+                per_object, part.eye_local, part.eye_faces, ids, n_eff_v,
+                size_b, depth_map=depth_map, swap=sw, cube_depth=cube_depth,
                 rows=rows, impl=impl)
-            eye_f_b, smp, run = bucket_march_args(cull, eye_faces, ids)
             scatter = sweep_march(
-                volumes_sweep, light_sweep, vol_tex_ids[ids], eye_f_b, params,
-                smp, run, size_b, size_b, n_eff_b=n_eff_v, light_ids=ids,
-                vol_zmax=vol_zmax, impl=impl)       # (count, 6, 4, Sb, Sb)
-            scatter[:, :, :3] *= 1.0 / (2.0 * math.pi)
-            scatter = scatter * run[:, :, None, None, None]
+                volumes_sweep, light_sweep, part.tex[sorted_rows],
+                part.faces[sorted_rows], params, part.smp[sorted_rows], run,
+                size_b, size_b, n_eff_b=n_eff_v,
+                light_ids=part.ids[sorted_rows], vol_zmax=vol_zmax,
+                impl=impl)                          # (count, 6, 4, Sb, Sb)
             if pack:
-                out_b = pack_cube_f16(scatter)
+                bucket_store_plain(scatter, run, sw, color, rows, pack=True)
             else:
-                out_b = scatter.to(volumes_sweep.dtype)
-            if sw is not None:
-                out_b = torch.where(sw[:, :, None, None, None],
-                                    out_b.transpose(-1, -2), out_b)
-            color[rows, :, :, :size_b, :size_b] = out_b
-    if not sorted_output:
-        order = torch.arange(n, device=dev)
-    return SortedSweep(CubeMaps(color=color, depth=cube_depth), mips, order,
-                       swap)
+                lod_partition_ops.bucket_store(scatter, run, sw, color,
+                                               rows, impl=impl)
+    order = part.order if sorted_output else torch.arange(n, device=dev)
+    return SortedSweep(CubeMaps(color=color, depth=cube_depth), part.mips,
+                       order, part.swap)
 
 
 def ray_march_view_sweep(
